@@ -12,7 +12,7 @@ import sys
 
 sys.path.insert(0, osp.join(osp.dirname(__file__), "..", ".."))
 
-import flax.linen as nn
+from gammagl_tpu import nn
 from gammagl_tpu.layers.conv import AGNNConv
 from examples.common import base_parser, run_simple_node_trainer, probe_num_classes
 

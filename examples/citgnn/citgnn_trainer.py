@@ -11,7 +11,7 @@ tree). The reference's CITModule.DSU feature transfer is computed but its
 output is discarded by the loss (`assignment_matrics, _ = forward(...)`);
 we therefore implement exactly the loss the reference optimizes.
 
-TPU-native: mincut/ortho are computed SPARSELY from the edge list
+Here mincut/ortho are computed SPARSELY from the edge list
 (gammagl_tpu/layers/pool/mincut.py) — no N x N adjacency in HBM, unlike
 the reference's ``adj_matrix.toarray()``.
 
@@ -44,7 +44,7 @@ from gammagl_tpu.models import GCNModel
 from gammagl_tpu.train import TrainState, accuracy, semi_supervised_loss
 from gammagl_tpu.utils import add_self_loops, calc_gcn_norm
 
-import flax.linen as nn
+from gammagl_tpu import nn
 
 REF_GCIL = "/root/reference/examples/gcil/dataset"
 REF_CITGNN = "/root/reference/examples/citgnn/datasets"

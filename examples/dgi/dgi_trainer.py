@@ -27,7 +27,7 @@ def main(args):
     state = TrainState.create(params=params, tx=optax.adam(args.lr))
 
     # graph threaded as jit args (never close over device arrays); the
-    # corruption + step runs as a chunked lax.scan to amortize RPC floor
+    # corruption + step runs as a chunked lax.scan (one host sync per chunk)
     @jax.jit
     def pretrain_chunk(state, rng, d):
         def body(carry, _):

@@ -1,8 +1,8 @@
 """EdgePrompt (learnable edge prompt tuning) trainer.
 
 Reference flow: examples/edgeprompt/edgeprompt_trainer.py (dataset -> model -> Adam
-semi-supervised CE -> best-val test accuracy). TPU-native: the whole train
-step is one jit region; synthetic SBM fallback keeps the script runnable
+semi-supervised CE -> best-val test accuracy). The whole train step is
+one jit region; synthetic SBM fallback keeps the script runnable
 without downloads.
 
 Usage: python examples/edgeprompt/edgeprompt_trainer.py --dataset cora --lr 0.01
@@ -14,7 +14,7 @@ import sys
 sys.path.insert(0, osp.join(osp.dirname(__file__), "..", ".."))
 
 from examples.common import base_parser, run_simple_node_trainer, probe_num_classes
-import flax.linen as nn
+from gammagl_tpu import nn
 
 from gammagl_tpu.models import EdgePromptModel
 

@@ -1,4 +1,4 @@
-"""GCN full-batch trainer -- the reference's flagship example, TPU-native.
+"""GCN full-batch trainer -- the reference's flagship example.
 
 Reference flow: examples/gcn/gcn_trainer.py:52-141 (Planetoid -> add self
 loops -> GCN -> Adam semi-supervised CE -> best-val checkpoint). Here the
@@ -56,8 +56,7 @@ def main(args):
     state = TrainState.create(params=params, tx=tx)
 
     # Data threaded through as jit ARGUMENTS (closing over device arrays
-    # embeds them as MLIR constants -> minutes-long lowering stalls, see
-    # PERF_NOTES.md); epochs run in chunked lax.scan with the best-val
+    # embeds them in the program as constants); epochs run in chunked lax.scan with the best-val
     # parameter snapshot tracked on device (replaces the reference's
     # save-weights-on-best, examples/gcn/gcn_trainer.py:110).
     sys.path.insert(0, osp.join(osp.dirname(__file__), ".."))
@@ -100,5 +99,5 @@ if __name__ == "__main__":
     parser.add_argument("--l2_coef", type=float, default=5e-4)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--best_model_path", type=str,
-                        default="/tmp/gcn_best.msgpack")
+                        default="/tmp/gcn_best.npz")
     main(parser.parse_args())

@@ -1,8 +1,8 @@
 """GCNII (initial residual + identity mapping) trainer.
 
 Reference flow: examples/gcnii/gcnii_trainer.py (dataset -> model -> Adam
-semi-supervised CE -> best-val test accuracy). TPU-native: the whole train
-step is one jit region; synthetic SBM fallback keeps the script runnable
+semi-supervised CE -> best-val test accuracy). The whole train step is
+one jit region; synthetic SBM fallback keeps the script runnable
 without downloads.
 
 Usage: python examples/gcnii/gcnii_trainer.py --dataset cora --lr 0.01

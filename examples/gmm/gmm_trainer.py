@@ -12,7 +12,7 @@ import sys
 
 sys.path.insert(0, osp.join(osp.dirname(__file__), "..", ".."))
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax.numpy as jnp
 from gammagl_tpu.utils import degree
 from gammagl_tpu.layers.conv import GMMConv

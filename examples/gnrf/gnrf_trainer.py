@@ -1,8 +1,8 @@
 """GNRF (graph neural ODE / RK4 scan) trainer.
 
 Reference flow: examples/gnrf/gnrf_trainer.py (dataset -> model -> Adam
-semi-supervised CE -> best-val test accuracy). TPU-native: the whole train
-step is one jit region; synthetic SBM fallback keeps the script runnable
+semi-supervised CE -> best-val test accuracy). The whole train step is
+one jit region; synthetic SBM fallback keeps the script runnable
 without downloads.
 
 Usage: python examples/gnrf/gnrf_trainer.py --dataset cora --lr 0.01

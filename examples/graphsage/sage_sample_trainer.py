@@ -49,8 +49,8 @@ def main(args):
         presample_chunks=args.presample_chunks)
     if args.resample_every > 1:
         # replay cached samples between resampling epochs: on hosts whose
-        # sampler is slower than the TPU step this makes epochs 1..k-1
-        # device-bound (8 ms/batch at the Reddit protocol vs 73 fresh)
+        # sampler is slower than the device step this makes epochs 1..k-1
+        # device-bound
         loader = EpochCache(loader, resample_every=args.resample_every,
                             seed=args.seed)
 
@@ -99,11 +99,11 @@ def main(args):
             loss_fn, has_aux=True)(state.params)
         return state.apply_gradients(grads), loss, logits
 
-    # TPU-native input pipeline (the gglspeedup tier, SURVEY section 2.6):
-    # features stay RESIDENT in HBM (DeviceFeatureCache) so each batch
-    # moves only node ids + edge blocks over the wire and gathers features
-    # on-device; host sampling + padding runs in a background thread
-    # (prefetch) overlapping the TPU step; per-step metrics stay on device
+    # Input pipeline (the gglspeedup tier, SURVEY section 2.6):
+    # features stay RESIDENT in device memory (DeviceFeatureCache) so each
+    # batch moves only node ids + edge blocks to the device and gathers
+    # features there; host sampling + padding runs in a background thread
+    # (prefetch) overlapping the device step; per-step metrics stay on device
     # and sync once per epoch.
     from gammagl_tpu.loader import DeviceFeatureCache
     from gammagl_tpu.loader.prefetch import pipeline
@@ -183,8 +183,8 @@ if __name__ == "__main__":
     parser.add_argument("--fanout1", type=int, default=25)
     parser.add_argument("--fanout2", type=int, default=10)
     parser.add_argument("--device_cache", type=int, default=1)
-    # thread prefetch loses to serial + OpenMP presample on few-core hosts
-    # (see PERF_NOTES.md end-to-end section); enable on >4-core hosts
+    # thread prefetch lost to serial + OpenMP presample on a 2-core host;
+    # enable on hosts with more cores
     parser.add_argument("--prefetch", type=int, default=0)
     parser.add_argument("--presample_chunks", type=int, default=4)
     parser.add_argument("--resample_every", type=int, default=1,

@@ -32,7 +32,7 @@ from gammagl_tpu.utils.conversation import get_conv_template
 from gammagl_tpu.utils.gfm_utils import (DEFAULT_GRAPH_TOKEN,
                                          GRAPH_TOKEN_INDEX, IGNORE_INDEX)
 
-import flax.linen as nn
+from gammagl_tpu import nn
 
 
 def toy_tokenizer(s):

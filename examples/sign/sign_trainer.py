@@ -1,6 +1,6 @@
 """SIGN trainer (reference: examples/sign flow + BASELINE papers100M
 config): K-hop aggregation precomputed once, training is pure GEMMs --
-the ideal TPU inner loop and the scalable path for huge graphs.
+the ideal accelerator inner loop and the scalable path for huge graphs.
 """
 
 import os.path as osp

@@ -1,12 +1,12 @@
-"""gammagl_tpu: a TPU-native graph learning framework.
+"""gammagl_tpu: a graph learning framework on JAX.
 
-A from-scratch JAX / XLA / Pallas re-design of the capability surface of
+A from-scratch JAX / XLA re-design of the capability surface of
 GammaGL (BUPT-GAMMA/GammaGL): message-passing kernels, graph data structures,
 a conv/model zoo, dataset/loader infrastructure, and -- beyond the reference --
 multi-chip distributed training via `jax.sharding` meshes with halo exchange.
 
 Layer map (cf. reference SURVEY.md section 1):
-  ops/        -- segment reductions, SpMM, SDDMM, edge softmax (XLA + Pallas)
+  ops/        -- segment reductions, SpMM, SDDMM, edge softmax (XLA)
   data/       -- Graph / HeteroGraph pytrees, batching, Dataset lifecycle
   datasets/   -- dataset classes (Planetoid, Amazon, TUDataset, ...)
   layers/     -- MessagePassing + conv zoo, pooling, attention

@@ -1,11 +1,11 @@
 // Host-side graph sampling kernels.
 //
-// TPU-native equivalent of the reference's C++ sampling extension
+// Equivalent of the reference's C++ sampling extension
 // (reference: gammagl/ops/sparse/cpu/neighbor_sample.cpp:22 fanout loop over
 // CSC with hash-map relabeling; rw.cpp:1-58 random walks; saint.cpp subgraph;
 // sample.cpp per-layer adj sampling; convert.cpp ind2ptr/ptr2ind).
 // Sampling is data-dependent-shape host work, so it stays native C++ on the
-// TPU host VM; Python binds via ctypes (no pybind11 in this image).
+// host; Python binds via ctypes (no pybind11 needed).
 //
 // All functions are extern "C", operate on caller-allocated int64 buffers,
 // and return actual sizes; callers pad the results to static shapes before

@@ -12,7 +12,6 @@ __all__ = ["get_config", "get_dataset_root", "save_config", "DEFAULTS"]
 DEFAULTS = {
     "dataset_root": "~/.ggl_tpu/datasets",
     "mesh_axis_names": ["dp"],
-    "use_pallas": True,
 }
 
 _CONFIG_DIR = osp.expanduser("~/.ggl_tpu")

@@ -129,38 +129,6 @@ class HeteroGraph:
     def get_edge_store(self, src, rel, dst):
         return self[(src, rel, dst)]
 
-    def csr_plans(self, R=64, ET=128, window=True):
-        """Per-edge-type Pallas CSR plans for the fused attention/SpMM
-        kernels (cached). Keys match `edge_index_dict`; pass the dict as
-        `plan_dict` to the hetero convs (HGTConv/HANConv). Tile defaults
-        are smaller than the homogeneous Graph default because per-type
-        subgraphs are typically much sparser. ``window=True`` builds the
-        aligned-window layout: the convs' per-relation source gathers
-        run COMPACT (no lane padding on the gather-engine clock)."""
-        all_caches = getattr(self, "_csr_plans", None)
-        if all_caches is None:
-            all_caches = {}
-            object.__setattr__(self, "_csr_plans", all_caches)
-        cache = all_caches.get((R, ET, window))
-        if cache is None:
-            import numpy as _np
-            from gammagl_tpu.ops.pallas import build_csr_plan
-            cache = all_caches[(R, ET, window)] = {}
-            for et, store in self._edge_stores.items():
-                ei = store._store.get("edge_index")
-                if ei is None:
-                    continue
-                ei = _np.asarray(ei)
-                src_t, _, dst_t = et
-                n_dst = self[dst_t].num_nodes
-                n_src = self[src_t].num_nodes
-                if n_dst is None or n_src is None:
-                    continue
-                cache[et] = build_csr_plan(ei[0], ei[1], n_dst,
-                                           num_src=n_src, R=R, ET=ET,
-                                           window=window)
-        return cache
-
     @property
     def num_nodes(self):
         sizes = [s.num_nodes for s in self._node_stores.values()]

@@ -12,7 +12,7 @@ egress; stage with `python scripts/stage_data.py check`).
 
 Three accepted raw layouts under ``<root>/<name with _>/raw/``:
 
-1. **npy** (the TPU-host fast path; what `scripts/stage_data.py`
+1. **npy** (the fast path; what `scripts/stage_data.py`
    converts to): ``node_feat.npy``, ``edge_index.npy``,
    ``node_label.npy`` — loaded with ``mmap_mode='r'`` so a
    papers100M-scale graph costs no resident host RAM until sliced.

@@ -4,7 +4,7 @@ ADDataset, AliRCD.
 Reference: gammagl/datasets/{modelnet40,shapenet,ngsim,acm4dhn,acm4rohe,
 ADDataset,alircd}.py. All host-side numpy; graphs come out as pytree-ready
 `Graph`/`HeteroGraph` objects. Point-cloud datasets (ModelNet40/ShapeNet)
-store fixed-size point sets — already static-shape friendly for TPU
+store fixed-size point sets — already static-shape friendly for jit
 batching.
 """
 

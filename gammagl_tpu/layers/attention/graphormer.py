@@ -3,13 +3,12 @@
 Reference: gammagl/layers/attention/{graphormer_layer.py:8,46,61,
 centrality_encoder.py:14, spatial_encoder.py:5, edge_encoder.py:10} and
 gammagl/utils/shortest_path.py. This is the reference's only dense-attention
-path -- on TPU it is the *best*-suited model family (pure MXU matmuls,
-no scatter).
+path -- dense matmuls and no scatter.
 """
 
 from typing import Optional
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax
 import jax.numpy as jnp
 

@@ -5,7 +5,7 @@ Reference: gammagl/layers/attention/rgt_attention.py:17-205
 EuclideanStructureLearner:89, CrossManifoldAttention:122,
 EuclideanAttention:169).
 
-TPU re-design. The reference compacts source ids with host-side
+Re-design. The reference compacts source ids with host-side
 `np.unique(..., return_inverse=True)` before the edge softmax
 (rgt_attention.py:152-154) — a device->host sync per layer per batch. Segment
 softmax is invariant to relabeling segments, so here the softmax runs directly
@@ -15,7 +15,7 @@ Structure subgraph edge buffers are expected zero-padded with id
 `num_segments` (masked out by segment_softmax / segment_sum).
 """
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax.numpy as jnp
 
 from gammagl_tpu.layers.conv.rgt_layers import ConstCurveLinear

@@ -1,14 +1,13 @@
 """Reference-name conv layers: FusedGATConv, MAGCLConv, MGNNI_m_iter.
 
-TPU-native counterparts of the reference exports the compat audit found
-missing by name:
+Counterparts of the reference exports the compat audit found missing by
+name:
 
 - ``FusedGATConv`` (reference gammagl/layers/conv/fusedgat_conv.py): the
-  reference wraps the CUDA dgNN fused-GAT kernel. Here the fused path IS
-  our Pallas flash edge-attention kernel (score + online softmax +
-  aggregate in one pass, ops/pallas/flash_attention.py), so this class is
-  a GATConv that *requires* the fused plan and exposes the reference's
-  ``to_graph_format`` precompute hook as the plan builder.
+  reference wraps the CUDA dgNN fused-GAT kernel. Here it is GATConv, whose
+  score, segment softmax and aggregate XLA fuses, plus the reference's
+  ``to_graph_format`` precompute hook, which sorts the edges by
+  destination.
 - ``MAGCLConv`` (reference gammagl/layers/conv/magcl_conv.py): GCN-style
   conv whose forward takes a propagation depth ``k`` (MA-GCL augments the
   model by varying k between views).
@@ -20,7 +19,7 @@ missing by name:
   gradient approximation).
 """
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax.numpy as jnp
 
 from gammagl_tpu.layers.conv.gat_conv import GATConv
@@ -32,39 +31,24 @@ __all__ = ["FusedGATConv", "MAGCLConv", "MGNNI_m_iter"]
 
 
 class FusedGATConv(GATConv):
-    """GATConv pinned to the fused flash-attention kernel path.
+    """GATConv with the reference's two-step protocol (precompute the graph
+    format once, reuse it every forward)::
 
-    Usage mirrors the reference's two-step protocol (precompute graph
-    format once, reuse every forward)::
-
-        plan = FusedGATConv.to_graph_format(edge_index, num_nodes)
-        out = conv.apply(params, x, edge_index, num_nodes, plan=plan)
+        edge_index = FusedGATConv.to_graph_format(edge_index, num_nodes)
+        out = conv.apply(params, x, edge_index, num_nodes)
     """
 
     @staticmethod
-    def to_graph_format(edge_index, num_nodes=None, **kwargs):
-        """Build the fused-kernel plan (reference: to_graph_format
-        returning dgNN CSR/CSC buffers; here a blocked-CSR flash plan)."""
+    def to_graph_format(edge_index, num_nodes=None):
+        """Edges sorted by destination (then source), as a (2, E) int32
+        numpy array (reference: to_graph_format returning dgNN CSR/CSC
+        buffers)."""
         import numpy as np
-
-        from gammagl_tpu.ops.pallas import build_csr_plan
 
         src = np.asarray(edge_index[0])
         dst = np.asarray(edge_index[1])
-        if num_nodes is None:
-            num_nodes = int(max(src.max(), dst.max())) + 1
-        return build_csr_plan(src, dst, num_nodes, **kwargs)
-
-    @nn.compact
-    def __call__(self, x, edge_index, num_nodes=None, train=False,
-                 plan=None):
-        if plan is None:
-            raise ValueError(
-                "FusedGATConv requires the fused plan; precompute it once "
-                "with FusedGATConv.to_graph_format(edge_index, num_nodes) "
-                "and pass plan=... (use GATConv for the planless path).")
-        return super().__call__(x, edge_index, num_nodes=num_nodes,
-                                train=train, plan=plan)
+        order = np.lexsort((src, dst))
+        return np.stack([src[order], dst[order]]).astype(np.int32)
 
 
 class MAGCLConv(MessagePassing):

@@ -6,13 +6,22 @@ weighted aggregate = bspmm) and gatv2_conv.py (score applies `a` after the
 nonlinearity over summed endpoint features).
 """
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax.numpy as jnp
 
 from gammagl_tpu.layers.conv.message_passing import MessagePassing
-from gammagl_tpu.ops import bspmm, segment_softmax
+from gammagl_tpu.ops import bspmm, gather_rows, segment_softmax
 
 __all__ = ["GATConv", "GATV2Conv"]
+
+
+def _scores(feat, att):
+    """Edge scores <feat_e, att>, the products summed in f32 as in `sddmm`.
+
+    The scores and their softmax stay in f32 (E x H values, small beside
+    the E x H x F messages); the callers cast alpha to the features' dtype
+    for the aggregation."""
+    return jnp.sum(feat.astype(jnp.float32) * att, axis=-1)
 
 
 class GATConv(MessagePassing):
@@ -23,13 +32,9 @@ class GATConv(MessagePassing):
     dropout_rate: float = 0.0
     add_bias: bool = True
     dtype: object = None  # compute dtype (e.g. bf16); params stay f32
-    remat: bool = False   # rematerialize per-head attention in the bwd
-    # (drops each head's E x F residuals; one extra fused pass per head.
-    #  Turn on for full-batch training on multi-million-edge graphs.)
 
     @nn.compact
-    def __call__(self, x, edge_index, num_nodes=None, train=False,
-                 plan=None):
+    def __call__(self, x, edge_index, num_nodes=None, train=False):
         H, F = self.heads, self.out_channels
         if num_nodes is None:
             num_nodes = x.shape[0]
@@ -43,67 +48,16 @@ class GATConv(MessagePassing):
         x = (x @ w).reshape(-1, H, F)
         att = self.param("att", nn.initializers.truncated_normal(0.02),
                          (1, H, 2 * F))
-        if dtype is not None:
-            att = att.astype(dtype)
-        if plan is not None:
-            # Fused fast path: GAT's additive score splits per endpoint
-            # (e = <att_src, x_src> + <att_dst, x_dst>), so the whole
-            # score -> softmax -> aggregate pipeline runs as ONE flash
-            # kernel per head over ONE endpoint gather (the source score
-            # rides the feature gather as extra columns). 6.5-8.8x over
-            # the decomposed XLA-scatter path at arxiv scale. Attention
-            # dropout is fused too: the post-softmax alpha mask enters the
-            # kernel as pre-scaled per-edge weights (keep_pad), so
-            # training never leaves the fused path.
-            import jax
-            from gammagl_tpu.ops.pallas import (flash_edge_attention_mh,
-                                                plan_gather_src,
-                                                plan_gather_src_compact)
-            s_src = jnp.einsum("nhf,hf->nh", x, att[0, :, :F])
-            a_dst = jnp.einsum("nhf,hf->nh", x, att[0, :, F:])
-            # the per-edge source score rides the feature gather: match the
-            # feature dtype so a bf16 gather stays bf16 (scores are recast
-            # to f32 inside the kernel)
-            packed = jnp.concatenate(
-                [x.reshape(-1, H * F), s_src.astype(x.dtype)], axis=1)
-            # window plans gather COMPACT (E rows, no padding; the flash
-            # kernels stream slabs at the plan's window indices)
-            if getattr(plan, "tile_src", None) is not None:
-                g = plan_gather_src_compact(packed, plan)
-            else:
-                g = plan_gather_src(packed, plan)
-            keep = None
-            if self.dropout_rate > 0 and train:
-                from gammagl_tpu.ops.pallas import attention_keep_mask
-                keep = attention_keep_mask(self.make_rng("dropout"),
-                                           self.dropout_rate,
-                                           (plan.E_pad, H))
-
-            # ALL heads run as ONE pallas_call (head on the kernel grid)
-            # over the single packed gather — no per-head Python loop, no
-            # second gather for the scores.
-            def attn(g, a_dst, keep):
-                msg = g[:, :H * F].reshape(-1, H, F)
-                s = g[:, H * F:]
-                return flash_edge_attention_mh(s, a_dst, msg, plan,
-                                               self.negative_slope,
-                                               keep_pad=keep)
-
-            if self.remat:
-                attn = jax.checkpoint(attn, static_argnums=())
-            out = attn(g, a_dst, keep)
-        else:
-            src, dst = edge_index[0], edge_index[1]
-            feat = jnp.concatenate(
-                [jnp.take(x, src, axis=0, mode="clip"),
-                 jnp.take(x, dst, axis=0, mode="clip")], axis=-1)
-            e = jnp.sum(feat * att, axis=-1)  # (E, H)
-            e = nn.leaky_relu(e, self.negative_slope)
-            alpha = segment_softmax(e, dst, num_nodes)
-            if self.dropout_rate > 0:
-                alpha = nn.Dropout(self.dropout_rate,
-                                   deterministic=not train)(alpha)
-            out = bspmm(edge_index, alpha, x, num_nodes=num_nodes)
+        src, dst = edge_index[0], edge_index[1]
+        feat = jnp.concatenate(
+            [gather_rows(x, src), gather_rows(x, dst)], axis=-1)
+        e = _scores(feat, att)  # (E, H)
+        e = nn.leaky_relu(e, self.negative_slope)
+        alpha = segment_softmax(e, dst, num_nodes).astype(x.dtype)
+        if self.dropout_rate > 0:
+            alpha = nn.Dropout(self.dropout_rate,
+                               deterministic=not train)(alpha)
+        out = bspmm(edge_index, alpha, x, num_nodes=num_nodes)
         if self.concat:
             out = out.reshape(-1, H * F)
         else:
@@ -132,8 +86,7 @@ class GATV2Conv(MessagePassing):
     dtype: object = None  # compute dtype (e.g. bf16); params stay f32
 
     @nn.compact
-    def __call__(self, x, edge_index, num_nodes=None, train=False,
-                 plan=None):
+    def __call__(self, x, edge_index, num_nodes=None, train=False):
         H, F = self.heads, self.out_channels
         if num_nodes is None:
             num_nodes = x.shape[0]
@@ -146,58 +99,17 @@ class GATV2Conv(MessagePassing):
             kernel_init=nn.initializers.glorot_uniform())
         att = self.param("att", nn.initializers.truncated_normal(0.02),
                          (1, H, F))
-        if dtype is not None:
-            att = att.astype(dtype)
         x_l = lin_l(x).reshape(-1, H, F)
         x_r = lin_r(x).reshape(-1, H, F)
-        if plan is not None:
-            # GATv2's score is per-edge (a . leaky(W_l x_j + W_r x_i) --
-            # no endpoint decomposition), so the fused path gathers the
-            # src side once, expands the dst side from dense blocks on
-            # the MXU (expand_dst_csr -- no second gather-engine pass),
-            # and runs softmax + aggregate as ONE flash kernel for all
-            # heads (arbitrary-score variant, slope=1 identity); dropout
-            # fuses via keep_pad.
-            from gammagl_tpu.ops.pallas import (expand_dst_csr,
-                                                flash_softmax_spmm_mh,
-                                                plan_gather_src,
-                                                plan_gather_src_compact)
-            compact = getattr(plan, "tile_src", None) is not None
-            if compact:
-                # window plan: src gather COMPACT (E rows, no padding)
-                # and the dst expand emits matching compact order
-                g_l = plan_gather_src_compact(x_l.reshape(-1, H * F),
-                                              plan)
-            else:
-                g_l = plan_gather_src(x_l.reshape(-1, H * F), plan)
-            # dst side expands from dense (R, F) blocks on the MXU —
-            # no second trip through the gather engine (~5x at arxiv
-            # scale; see ops/pallas/sddmm_csr.py:expand_dst_csr)
-            g_r = expand_dst_csr(x_r.reshape(-1, H * F), plan, False,
-                                 compact)
-            feat = nn.leaky_relu(
-                (g_l + g_r).reshape(-1, H, F), self.negative_slope)
-            e = jnp.einsum("ehf,hf->eh", feat, att[0])
-            keep = None
-            if self.dropout_rate > 0 and train:
-                from gammagl_tpu.ops.pallas import attention_keep_mask
-                keep = attention_keep_mask(self.make_rng("dropout"),
-                                           self.dropout_rate,
-                                           (plan.E_pad, H))
-            # all heads in ONE pallas_call (softmax + aggregate fused)
-            out = flash_softmax_spmm_mh(
-                e, g_l.reshape(-1, H, F), plan, keep_pad=keep)
-        else:
-            src, dst = edge_index[0], edge_index[1]
-            feat = (jnp.take(x_l, src, axis=0, mode="clip")
-                    + jnp.take(x_r, dst, axis=0, mode="clip"))
-            feat = nn.leaky_relu(feat, self.negative_slope)
-            e = jnp.sum(feat * att, axis=-1)
-            alpha = segment_softmax(e, dst, num_nodes)
-            if self.dropout_rate > 0:
-                alpha = nn.Dropout(self.dropout_rate,
-                                   deterministic=not train)(alpha)
-            out = bspmm(edge_index, alpha, x_l, num_nodes=num_nodes)
+        src, dst = edge_index[0], edge_index[1]
+        feat = gather_rows(x_l, src) + gather_rows(x_r, dst)
+        feat = nn.leaky_relu(feat, self.negative_slope)
+        e = _scores(feat, att)
+        alpha = segment_softmax(e, dst, num_nodes).astype(x_l.dtype)
+        if self.dropout_rate > 0:
+            alpha = nn.Dropout(self.dropout_rate,
+                               deterministic=not train)(alpha)
+        out = bspmm(edge_index, alpha, x_l, num_nodes=num_nodes)
         if self.concat:
             out = out.reshape(-1, H * F)
         else:

@@ -5,7 +5,7 @@ Reference semantics: gammagl/layers/conv/gcn_conv.py:8 with norm modes
 computed from src/dst degrees, then a fused SpMM propagate.
 """
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax.numpy as jnp
 
 from gammagl_tpu.layers.conv.message_passing import MessagePassing
@@ -21,8 +21,7 @@ class GCNConv(MessagePassing):
     dtype: object = None  # compute dtype (e.g. jnp.bfloat16); params stay f32
 
     @nn.compact
-    def __call__(self, x, edge_index, edge_weight=None, num_nodes=None,
-                 plan=None):
+    def __call__(self, x, edge_index, edge_weight=None, num_nodes=None):
         if self.norm not in ("left", "right", "both", "none"):
             raise ValueError(f"invalid norm {self.norm!r}")
         if num_nodes is None:
@@ -48,7 +47,7 @@ class GCNConv(MessagePassing):
                              0.0)
             weights = weights * norm[dst]
         out = self.propagate(x, edge_index, edge_weight=weights,
-                             num_nodes=num_nodes, plan=plan)
+                             num_nodes=num_nodes)
         if self.add_bias:
             bias = self.param("bias", nn.initializers.zeros,
                               (self.out_channels,))

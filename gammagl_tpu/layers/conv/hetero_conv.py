@@ -8,15 +8,38 @@ propagate :135-156), simplehgn_conv.py (edge-type-aware attention).
 
 from typing import Any, Dict, Tuple
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax
 import jax.numpy as jnp
 
 from gammagl_tpu.layers.conv.message_passing import MessagePassing
 from gammagl_tpu.ops import bspmm, segment_softmax
-from gammagl_tpu.ops.segment import segment_sum
+from gammagl_tpu.ops.segment import accum_dtype, gather_rows, segment_sum
 
-__all__ = ["HeteroConv", "HANConv", "HGTConv", "SimpleHGNConv"]
+__all__ = ["HeteroConv", "HANConv", "HGTConv", "SimpleHGNConv",
+           "relation_attention"]
+
+
+def relation_attention(q, k, v, edge_index, num_dst, rel_pri,
+                       alpha_dropout=None):
+    """HGT attention over one relation (reference hgt_conv.py:135-156):
+    score_e = <q[dst_e], k[src_e]> * rel_pri / sqrt(D), a softmax over each
+    destination's edges, then the alpha-weighted sum of v[src_e].
+
+    q (N_dst, H, D); k, v (N_src, H, D); rel_pri (H,). `alpha_dropout`, if
+    given, is applied to the (E, H) attention weights. Returns
+    (N_dst, H, D)."""
+    src, dst = edge_index[0], edge_index[1]
+    k_e = gather_rows(k, src)
+    v_e = gather_rows(v, src)
+    q_e = gather_rows(q, dst)
+    acc = accum_dtype(q.dtype)
+    score = ((q_e.astype(acc) * k_e.astype(acc)).sum(-1) * rel_pri
+             / (q.shape[-1] ** 0.5))  # (E, H)
+    alpha = segment_softmax(score, dst, num_dst)
+    if alpha_dropout is not None:
+        alpha = alpha_dropout(alpha)
+    return segment_sum(v_e * alpha[..., None], dst, num_dst)
 
 
 def _group(values, aggr):
@@ -92,7 +115,7 @@ class HANConv(nn.Module):
 
     @nn.compact
     def __call__(self, x_dict, edge_index_dict, num_nodes_dict=None,
-                 train=False, plan_dict=None):
+                 train=False):
         from gammagl_tpu.layers.conv.gat_conv import GATConv
 
         out_lists = {nt: [] for nt in x_dict}
@@ -107,8 +130,7 @@ class HANConv(nn.Module):
                           negative_slope=self.negative_slope,
                           name="gat__" + "__".join(et))
             out = gat(x_dict[src_t], edge_index_dict[et], num_nodes=n_dst,
-                      train=train,
-                      plan=plan_dict.get(et) if plan_dict else None)
+                      train=train)
             out_lists[dst_t].append(nn.relu(out))
         sem = SemAttAggr(hidden_size=self.out_channels)
         out_dict = {}
@@ -133,7 +155,7 @@ class HGTConv(nn.Module):
 
     @nn.compact
     def __call__(self, x_dict, edge_index_dict, num_nodes_dict=None,
-                 train=False, plan_dict=None):
+                 train=False):
         H = self.heads
         D = self.out_channels // H
         from gammagl_tpu.utils.compute_dtype import resolve_dtype
@@ -163,7 +185,6 @@ class HGTConv(nn.Module):
             m_rel = self.param(f"m_rel__{name}", init, (H, D, D))
             rel_pri = self.param(f"pri__{name}", nn.initializers.ones, (H,))
             ei = edge_index_dict[et]
-            src, dst = ei[0], ei[1]
             n_dst = (num_nodes_dict[dst_t] if num_nodes_dict
                      else x_dict[dst_t].shape[0])
             if dtype is not None:
@@ -171,79 +192,10 @@ class HGTConv(nn.Module):
                 m_rel = m_rel.astype(dtype)
             k = jnp.einsum("nhd,hde->nhe", k_dict[src_t], a_rel)
             v = jnp.einsum("nhd,hde->nhe", v_dict[src_t], m_rel)
-            plan = plan_dict.get(et) if plan_dict else None
-            if plan is not None:
-                # fused per-relation path: k/v ride ONE plan-order source
-                # gather (COMPACT on window plans); the dst-side q
-                # expands from dense (R, F) blocks on the MXU instead of
-                # a second trip through the gather engine; the relation
-                # score feeds the arbitrary-score flash kernel (softmax
-                # + aggregate in one pass per head), dropout fused via
-                # keep_pad.
-                from gammagl_tpu.ops.pallas import (expand_dst_csr,
-                                                    flash_softmax_spmm,
-                                                    plan_gather_src,
-                                                    plan_gather_src_compact)
-                compact = getattr(plan, "tile_src", None) is not None
-                # round-5 fast path: the fully fused packed kernel (one
-                # half-packed 2-column-group gather, q.k scores on the
-                # MXU in-kernel, fused bwd) — 1.8x the decomposed-gather
-                # train step at the bench protocol (hgt_roofline.py).
-                # Dropout still needs the materialized-alpha path.
-                use_packed = (compact and k.dtype == jnp.bfloat16
-                              and (H * D) % 128 == 0
-                              and (128 % D == 0 or D % 128 == 0)
-                              and (self.dropout_rate == 0 or not train))
-                if use_packed:
-                    from gammagl_tpu.ops.pallas import hgt_flash_packed
-                    kv = jnp.concatenate(
-                        [k.reshape(-1, H * D), v.reshape(-1, H * D)],
-                        axis=1)
-                    scale = (rel_pri.astype(jnp.float32) / (D ** 0.5))
-                    q_scaled = (q_dict[dst_t].astype(jnp.float32)
-                                * scale[None, :, None]
-                                ).astype(jnp.bfloat16)
-                    out = hgt_flash_packed(kv, q_scaled, plan
-                                           ).reshape(-1, H, D)
-                    out_lists[dst_t].append(out.reshape(-1, H * D))
-                    continue
-                packed = jnp.concatenate(
-                    [k.reshape(-1, H * D), v.reshape(-1, H * D)], axis=1)
-                if compact:
-                    g = plan_gather_src_compact(packed, plan)
-                else:
-                    g = plan_gather_src(packed, plan)
-                q_e = expand_dst_csr(
-                    q_dict[dst_t].reshape(-1, H * D), plan, False,
-                    compact).reshape(-1, H, D)
-                k_e = g[:, :H * D].reshape(-1, H, D)
-                score = ((q_e * k_e).sum(-1) * rel_pri / (D ** 0.5))
-                keep = None
-                if self.dropout_rate > 0 and train:
-                    from gammagl_tpu.ops.pallas import attention_keep_mask
-                    keep = attention_keep_mask(self.make_rng("dropout"),
-                                               self.dropout_rate,
-                                               (plan.E_pad, H))
-                out = jnp.stack(
-                    [flash_softmax_spmm(
-                        score[:, h],
-                        jax.lax.slice_in_dim(g, H * D + h * D,
-                                             H * D + (h + 1) * D, axis=1),
-                        plan,
-                        keep_pad=None if keep is None else keep[:, h])
-                     for h in range(H)], axis=1)
-            else:
-                k_e = jnp.take(k, jnp.minimum(src, k.shape[0] - 1), axis=0)
-                v_e = jnp.take(v, jnp.minimum(src, v.shape[0] - 1), axis=0)
-                q_e = jnp.take(q_dict[dst_t],
-                               jnp.minimum(dst, q_dict[dst_t].shape[0] - 1),
-                               axis=0)
-                score = (q_e * k_e).sum(-1) * rel_pri / (D ** 0.5)  # (E, H)
-                alpha = segment_softmax(score, dst, n_dst)
-                if self.dropout_rate > 0:
-                    alpha = nn.Dropout(self.dropout_rate,
-                                       deterministic=not train)(alpha)
-                out = segment_sum(v_e * alpha[..., None], dst, n_dst)
+            drop = (nn.Dropout(self.dropout_rate, deterministic=not train)
+                    if self.dropout_rate > 0 else None)
+            out = relation_attention(q_dict[dst_t], k, v, ei, n_dst,
+                                     rel_pri, alpha_dropout=drop)
             out_lists[dst_t].append(out.reshape(-1, H * D))
 
         out_dict = {}
@@ -279,7 +231,7 @@ class SimpleHGNConv(MessagePassing):
 
     @nn.compact
     def __call__(self, x, edge_index, edge_type, num_nodes=None,
-                 alpha_prev=None, train=False, plan=None):
+                 alpha_prev=None, train=False):
         H, F = self.heads, self.out_channels
         if num_nodes is None:
             num_nodes = x.shape[0]
@@ -294,37 +246,6 @@ class SimpleHGNConv(MessagePassing):
         a_l = self.param("att_l", init, (1, H, F))
         a_r = self.param("att_r", init, (1, H, F))
         a_e = self.param("att_e", init, (1, H, self.edge_dim))
-        if plan is not None:
-            # plan-order path: alpha MUST materialize here (it is returned
-            # for the next layer's residual blend), so this runs the
-            # padded softmax + per-head MXU bspmm rather than the flash
-            # kernel; alpha_prev/alpha are exchanged in PLAN order.
-            import numpy as np
-            from gammagl_tpu.ops.pallas import (bspmm_csr, plan_gather_dst,
-                                                plan_gather_src,
-                                                segment_softmax_padded)
-            et_pad = jnp.take(edge_type, jnp.asarray(
-                np.minimum(plan.perm, edge_type.shape[0] - 1)))
-            e = jnp.take(e_emb, et_pad, axis=0).reshape(
-                -1, H, self.edge_dim)
-            h_src = plan_gather_src(h.reshape(-1, H * F),
-                                    plan).reshape(-1, H, F)
-            h_dst = plan_gather_dst(h.reshape(-1, H * F),
-                                    plan).reshape(-1, H, F)
-            logits = ((h_src * a_l).sum(-1) + (h_dst * a_r).sum(-1)
-                      + (e * a_e).sum(-1))
-            logits = nn.leaky_relu(logits, self.negative_slope)
-            alpha = segment_softmax_padded(logits, plan)
-            if alpha_prev is not None:
-                alpha = (1 - self.beta) * alpha + self.beta * alpha_prev
-            if self.dropout_rate > 0:
-                alpha = nn.Dropout(self.dropout_rate,
-                                   deterministic=not train)(alpha)
-            out = bspmm_csr(h, alpha, plan).reshape(-1, H * F)
-            if self.residual:
-                out = out + nn.Dense(H * F, use_bias=False,
-                                     kernel_init=init)(x)
-            return out, alpha
         e = jnp.take(e_emb, edge_type, axis=0).reshape(-1, H, self.edge_dim)
         h_src = jnp.take(h, jnp.minimum(src, h.shape[0] - 1), axis=0)
         h_dst = jnp.take(h, jnp.minimum(dst, h.shape[0] - 1), axis=0)

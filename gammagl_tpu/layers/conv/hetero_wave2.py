@@ -6,7 +6,7 @@ rohehan_conv.py}.
 
 from typing import Dict, Tuple
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax
 import jax.numpy as jnp
 

@@ -7,16 +7,15 @@ explicit arguments, and jit makes reflection-free dispatch essentially free.
 
 Fusion rule (reference message_passing.py:144-147): when a subclass does not
 override `message`, `propagate` takes the fused SpMM path -- a single
-gather-scale-reduce XLA fuses end to end (or the Pallas CSR kernel when the
-caller supplies a plan).
+gather-scale-reduce that XLA fuses end to end.
 """
 
 from typing import Optional
 
-import flax.linen as nn
-import jax.numpy as jnp
+from gammagl_tpu import nn
 
-from gammagl_tpu.ops import (segment_max, segment_mean, segment_sum, spmm)
+from gammagl_tpu.ops import (gather_rows, segment_max, segment_mean,
+                             segment_sum, spmm)
 
 __all__ = ["MessagePassing"]
 
@@ -33,7 +32,7 @@ class MessagePassing(nn.Module):
 
         Reference: message_passing.py:55-61.
         """
-        msg = jnp.take(x, edge_index[0], axis=0, mode="clip")
+        msg = gather_rows(x, edge_index[0])
         if edge_weight is not None:
             msg = msg * edge_weight.reshape((-1,) + (1,) * (msg.ndim - 1))
         return msg
@@ -50,40 +49,8 @@ class MessagePassing(nn.Module):
         raise NotImplementedError(f"aggr {aggr!r} not supported")
 
     def message_aggregate(self, x, edge_index, edge_weight=None, aggr="sum",
-                          num_nodes=None, plan=None):
-        """Fused path = SpMM (message_passing.py:94-107).
-
-        When a `CSRPlan`/`BlockedCSRPlan` (`Graph.csr_plan()`) is supplied
-        and aggr='sum', the Pallas MXU kernel is used -- the analog of the
-        reference's `use_ext` fast path.
-        """
-        if plan is not None and aggr in ("sum", "mean", "max"):
-            # CSRPlan -> gather + MXU segment matmul; BlockPairPlan
-            # (Graph.auto_plan on banded graphs) -> gather-free one-hot
-            # matmuls against VMEM-resident source blocks
-            from gammagl_tpu.ops.pallas import (BlockPairPlan, HybridPlan,
-                                                spmm_block_pair, spmm_csr,
-                                                spmm_hybrid, spmm_max_csr)
-            if aggr == "max":
-                if isinstance(plan, (BlockPairPlan, HybridPlan)):
-                    return spmm(edge_index, edge_weight, x,
-                                num_nodes=num_nodes, reduce="max")
-                # segmented-scan + one-hot-pick kernel (segment_max.py)
-                return spmm_max_csr(x, edge_weight, plan)
-            kernel = (spmm_block_pair if isinstance(plan, BlockPairPlan)
-                      else spmm_hybrid if isinstance(plan, HybridPlan)
-                      else spmm_csr)
-            if aggr == "sum":
-                return kernel(x, edge_weight, plan)
-            # mean = sum with 1/deg(dst) edge weights -- keeps the MXU
-            # kernel path (deg is one O(E) count, amortized by jit CSE)
-            from gammagl_tpu.ops.segment import segment_count
-            deg = segment_count(edge_index[1], num_nodes, jnp.float32)
-            inv = jnp.where(deg > 0, 1.0 / deg, 0.0).astype(x.dtype)
-            w = inv[edge_index[1]]
-            if edge_weight is not None:
-                w = w * edge_weight
-            return kernel(x, w, plan)
+                          num_nodes=None):
+        """Fused path = SpMM (message_passing.py:94-107)."""
         return spmm(edge_index, edge_weight, x, num_nodes=num_nodes,
                     reduce=aggr)
 
@@ -91,7 +58,7 @@ class MessagePassing(nn.Module):
         return x
 
     def propagate(self, x, edge_index, aggr="sum", edge_weight=None,
-                  num_nodes: Optional[int] = None, plan=None, **kwargs):
+                  num_nodes: Optional[int] = None, **kwargs):
         if num_nodes is None:
             num_nodes = x.shape[0]
         cls = type(self)
@@ -100,7 +67,7 @@ class MessagePassing(nn.Module):
         if fused:
             out = self.message_aggregate(x, edge_index,
                                          edge_weight=edge_weight, aggr=aggr,
-                                         num_nodes=num_nodes, plan=plan)
+                                         num_nodes=num_nodes)
         else:
             msg = self.message(x, edge_index, edge_weight=edge_weight,
                                **kwargs)

@@ -10,7 +10,7 @@ one fused gather + segment-sum regardless of relation count.
 
 from typing import Optional
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax.numpy as jnp
 
 from gammagl_tpu.layers.conv.message_passing import MessagePassing
@@ -29,8 +29,7 @@ class RGCNConv(MessagePassing):
     add_bias: bool = True
 
     @nn.compact
-    def __call__(self, x, edge_index, edge_type, num_nodes=None,
-                 plan=None):
+    def __call__(self, x, edge_index, edge_type, num_nodes=None):
         if num_nodes is None:
             num_nodes = x.shape[0]
         src, dst = edge_index[0], edge_index[1]
@@ -57,22 +56,9 @@ class RGCNConv(MessagePassing):
         # shape static for any relation count
         n_src = x.shape[0]
         flat = h_all.reshape(R * n_src, Fo)
-        if plan is not None and getattr(plan, "src_pad", None) is not None:
-            # plan path: the same flat gather in the plan's padded
-            # dst-sorted order, reduced on the MXU segment kernel
-            # (pads masked by plan.valid inside segment_sum_csr)
-            import numpy as np
-            from gammagl_tpu.ops.pallas import segment_sum_csr
-            et_pad = jnp.take(
-                edge_type, jnp.asarray(
-                    np.minimum(plan.perm, edge_type.shape[0] - 1)))
-            idx = et_pad * n_src + jnp.asarray(plan.src_pad)
-            msg = jnp.take(flat, jnp.minimum(idx, R * n_src - 1), axis=0)
-            out = segment_sum_csr(msg, plan)
-        else:
-            idx = edge_type * n_src + jnp.minimum(src, n_src - 1)
-            msg = jnp.take(flat, jnp.minimum(idx, R * n_src - 1), axis=0)
-            out = segment_sum(msg, dst, num_nodes)
+        idx = edge_type * n_src + jnp.minimum(src, n_src - 1)
+        msg = jnp.take(flat, jnp.minimum(idx, R * n_src - 1), axis=0)
+        out = segment_sum(msg, dst, num_nodes)
 
         if self.root_weight:
             root = self.param("root", init, (Fi, Fo))

@@ -11,7 +11,7 @@ kernel pair; the segment reduce uses this framework's static-shape
 unsorted_segment_sum (no host-derived segment counts).
 """
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax.numpy as jnp
 
 from gammagl_tpu.ops.segment import unsorted_segment_sum
@@ -61,7 +61,7 @@ class ConstCurveLinear(nn.Module):
 class ConstCurveAgg(nn.Module):
     """Neighborhood sum renormalized onto the manifold (reference
     rgt_layers.py:526-563). With `use_att`, edge weights are a sigmoid of
-    the cross inner product (a gather + GEMM, MXU-friendly)."""
+    the cross inner product (a gather + GEMM)."""
 
     manifold: object
     in_features: int

@@ -5,19 +5,19 @@ vq_riemann.py (VectorQuantize_R:710-1060) — ~2,100 LoC ports of
 lucidrains' vector-quantize-pytorch with gumbel sampling, EMA, kmeans init,
 expiry, and einops reshuffling.
 
-TPU re-design: the RGT model instantiates these with `learnable_codebook=
+Re-design: the RGT model instantiates these with `learnable_codebook=
 True, ema_update=False, kmeans_init=False, use_cosine_sim=True`
 (gammagl/models/rgt.py:106-165), so the hot path is exactly: per-head
 nearest-code assignment + straight-through quantize + commitment loss. That
 path is implemented here natively: assignment distances are ONE batched GEMM
 per head (cosine similarity in flat space; cinner-based geodesic distance on
 the sphere / hyperboloid via `manifold.pairwise_dist`), which is the
-MXU-optimal formulation — no gather loops, no host RNG. The gradient flows
+GEMM formulation — no gather loops, no host RNG. The gradient flows
 to the codebook through the commitment/codebook loss exactly as the
 learnable-codebook reference configuration does.
 """
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax
 import jax.numpy as jnp
 
@@ -55,7 +55,7 @@ class VectorQuantizeE(nn.Module):
         zn = z / jnp.sqrt(jnp.sum(z * z, -1, keepdims=True) + 1e-12)
         cn = codebook / jnp.sqrt(
             jnp.sum(codebook * codebook, -1, keepdims=True) + 1e-12)
-        sim = jnp.einsum("hnd,hcd->hnc", zn, cn)          # batched MXU GEMM
+        sim = jnp.einsum("hnd,hcd->hnc", zn, cn)          # batched GEMM
         ind = jnp.argmax(sim, axis=-1)                    # (h,N)
         quant = jnp.take_along_axis(cn, ind[..., None], axis=1)  # (h,N,cd)
 

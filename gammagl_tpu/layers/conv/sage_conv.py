@@ -5,7 +5,7 @@ with 'mean' | 'gcn' | 'pool' | 'max' aggregators and bipartite (src, dst)
 feature pairs for sampled minibatches.
 """
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax.numpy as jnp
 
 from gammagl_tpu.layers.conv.message_passing import MessagePassing
@@ -21,7 +21,7 @@ class SAGEConv(MessagePassing):
     dtype: object = None  # compute dtype (e.g. bf16); params stay f32
 
     @nn.compact
-    def __call__(self, feat, edge_index, num_nodes=None, plan=None):
+    def __call__(self, feat, edge_index, num_nodes=None):
         if isinstance(feat, tuple):
             src_feat, dst_feat = feat
         else:
@@ -35,8 +35,7 @@ class SAGEConv(MessagePassing):
                             dtype=dtype, kernel_init=he)
         if self.aggr == "mean":
             out = self.propagate(fc_neigh(src_feat), edge_index,
-                                 num_nodes=num_nodes, aggr="mean",
-                                 plan=plan)
+                                 num_nodes=num_nodes, aggr="mean")
         elif self.aggr == "gcn":
             # symmetric-normalized sum, no separate self transform
             src, dst = edge_index[0], edge_index[1]
@@ -46,7 +45,7 @@ class SAGEConv(MessagePassing):
             w = (jnp.where(deg_src > 0, deg_src ** -0.5, 0.0)[src]
                  * jnp.where(deg_dst > 0, deg_dst ** -0.5, 0.0)[dst])
             out = self.propagate(h, edge_index, edge_weight=w,
-                                 num_nodes=num_nodes, plan=plan)
+                                 num_nodes=num_nodes)
         elif self.aggr in ("pool", "max"):
             h = nn.relu(nn.Dense(src_feat.shape[-1], use_bias=False,
                                  dtype=dtype,

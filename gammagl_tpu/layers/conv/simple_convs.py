@@ -8,7 +8,7 @@ fagcn_conv.py, gpr_conv.py, mixhop_conv.py, jumping_knowledge.py.
 
 from typing import Any, Callable, Optional, Sequence
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax.numpy as jnp
 
 from gammagl_tpu.layers.conv.message_passing import MessagePassing
@@ -37,8 +37,7 @@ class SGConv(MessagePassing):
     itera_k: int = 2
 
     @nn.compact
-    def __call__(self, x, edge_index, edge_weight=None, num_nodes=None,
-                 plan=None):
+    def __call__(self, x, edge_index, edge_weight=None, num_nodes=None):
         if num_nodes is None:
             num_nodes = x.shape[0]
         x = nn.Dense(self.out_channels,
@@ -46,7 +45,7 @@ class SGConv(MessagePassing):
         w = _gcn_weights(edge_index, num_nodes, edge_weight, x.dtype)
         for _ in range(self.itera_k):
             x = self.propagate(x, edge_index, edge_weight=w,
-                               num_nodes=num_nodes, plan=plan)
+                               num_nodes=num_nodes)
         return x
 
 
@@ -58,14 +57,14 @@ class GINConv(MessagePassing):
     learn_eps: bool = False
 
     @nn.compact
-    def __call__(self, x, edge_index, num_nodes=None, plan=None):
+    def __call__(self, x, edge_index, num_nodes=None):
         if num_nodes is None:
             num_nodes = x.shape[0]
         if self.learn_eps:
             eps = self.param("eps", lambda k: jnp.asarray(self.init_eps))
         else:
             eps = self.init_eps
-        agg = self.propagate(x, edge_index, num_nodes=num_nodes, plan=plan)
+        agg = self.propagate(x, edge_index, num_nodes=num_nodes)
         out = (1 + eps) * x + agg
         if self.apply_func is not None:
             out = self.apply_func(out)
@@ -82,7 +81,7 @@ class APPNPConv(MessagePassing):
 
     @nn.compact
     def __call__(self, x, edge_index, edge_weight=None, num_nodes=None,
-                 train=False, plan=None):
+                 train=False):
         if num_nodes is None:
             num_nodes = x.shape[0]
         w = _gcn_weights(edge_index, num_nodes, edge_weight, x.dtype)
@@ -92,7 +91,7 @@ class APPNPConv(MessagePassing):
             wk = drop(w) if self.edge_dropout > 0 else w
             x = ((1 - self.alpha)
                  * self.propagate(x, edge_index, edge_weight=wk,
-                                  num_nodes=num_nodes, plan=plan)
+                                  num_nodes=num_nodes)
                  + self.alpha * h0)
         return x
 
@@ -109,8 +108,7 @@ class GCNIIConv(MessagePassing):
     variant: bool = False
 
     @nn.compact
-    def __call__(self, x, x0, edge_index, edge_weight=None, num_nodes=None,
-                 plan=None):
+    def __call__(self, x, x0, edge_index, edge_weight=None, num_nodes=None):
         if num_nodes is None:
             num_nodes = x.shape[0]
         if edge_weight is None:
@@ -118,7 +116,7 @@ class GCNIIConv(MessagePassing):
         dense = nn.Dense(self.out_channels, use_bias=False,
                          kernel_init=nn.initializers.glorot_uniform())
         agg = self.propagate(x, edge_index, edge_weight=edge_weight,
-                             num_nodes=num_nodes, plan=plan)
+                             num_nodes=num_nodes)
         if self.variant:
             # variant=True concatenates [A_hat x, x0] before the transform
             support = jnp.concatenate(
@@ -142,7 +140,7 @@ class ChebConv(MessagePassing):
 
     @nn.compact
     def __call__(self, x, edge_index, edge_weight=None, num_nodes=None,
-                 lambda_max=2.0, plan=None):
+                 lambda_max=2.0):
         if num_nodes is None:
             num_nodes = x.shape[0]
         src, dst = edge_index[0], edge_index[1]
@@ -160,13 +158,13 @@ class ChebConv(MessagePassing):
                        kernel_init=nn.initializers.glorot_uniform())(tx_0)
         if self.K > 1:
             tx_1 = self.propagate(x, edge_index, edge_weight=w,
-                                  num_nodes=num_nodes, plan=plan) + diag * x
+                                  num_nodes=num_nodes) + diag * x
             out = out + nn.Dense(self.out_channels, use_bias=False,
                                  kernel_init=nn.initializers.glorot_uniform()
                                  )(tx_1)
             for _ in range(2, self.K):
                 tx_2 = 2 * (self.propagate(tx_1, edge_index, edge_weight=w,
-                                           num_nodes=num_nodes, plan=plan)
+                                           num_nodes=num_nodes)
                             + diag * tx_1) - tx_0
                 out = out + nn.Dense(
                     self.out_channels, use_bias=False,
@@ -184,7 +182,7 @@ class AGNNConv(MessagePassing):
     require_grad: bool = True
 
     @nn.compact
-    def __call__(self, x, edge_index, num_nodes=None, plan=None):
+    def __call__(self, x, edge_index, num_nodes=None):
         if num_nodes is None:
             num_nodes = x.shape[0]
         if self.require_grad:
@@ -196,7 +194,7 @@ class AGNNConv(MessagePassing):
         e = beta * sddmm_dot(edge_index, norm, norm)
         alpha = segment_softmax(e, edge_index[1], num_nodes)
         return self.propagate(x, edge_index, edge_weight=alpha,
-                              num_nodes=num_nodes, plan=plan)
+                              num_nodes=num_nodes)
 
 
 class FAGCNConv(MessagePassing):
@@ -207,8 +205,7 @@ class FAGCNConv(MessagePassing):
     drop_rate: float = 0.0
 
     @nn.compact
-    def __call__(self, x, edge_index, num_nodes=None, train=False,
-                 plan=None):
+    def __call__(self, x, edge_index, num_nodes=None, train=False):
         if num_nodes is None:
             num_nodes = x.shape[0]
         src, dst = edge_index[0], edge_index[1]
@@ -224,7 +221,7 @@ class FAGCNConv(MessagePassing):
         dis = jnp.where(deg > 0, deg ** -0.5, 0.0)
         w = dis[src] * alpha * dis[dst]
         return self.propagate(x, edge_index, edge_weight=w,
-                              num_nodes=num_nodes, plan=plan)
+                              num_nodes=num_nodes)
 
 
 class GPRConv(MessagePassing):
@@ -236,8 +233,7 @@ class GPRConv(MessagePassing):
     weight_init: str = "PPR"
 
     @nn.compact
-    def __call__(self, x, edge_index, edge_weight=None, num_nodes=None,
-                 plan=None):
+    def __call__(self, x, edge_index, edge_weight=None, num_nodes=None):
         if num_nodes is None:
             num_nodes = x.shape[0]
 
@@ -254,7 +250,7 @@ class GPRConv(MessagePassing):
         h = x
         for k in range(1, self.K + 1):
             h = self.propagate(h, edge_index, edge_weight=w,
-                               num_nodes=num_nodes, plan=plan)
+                               num_nodes=num_nodes)
             out = out + gamma[k] * h
         return out
 
@@ -266,8 +262,7 @@ class MixHopConv(MessagePassing):
     p: Sequence[int] = (0, 1, 2)
 
     @nn.compact
-    def __call__(self, x, edge_index, edge_weight=None, num_nodes=None,
-                 plan=None):
+    def __call__(self, x, edge_index, edge_weight=None, num_nodes=None):
         if num_nodes is None:
             num_nodes = x.shape[0]
         w = _gcn_weights(edge_index, num_nodes, edge_weight, x.dtype)
@@ -281,7 +276,7 @@ class MixHopConv(MessagePassing):
                     kernel_init=nn.initializers.glorot_uniform())(h))
             if k < max_p:
                 h = self.propagate(h, edge_index, edge_weight=w,
-                                   num_nodes=num_nodes, plan=plan)
+                                   num_nodes=num_nodes)
         return jnp.concatenate(outs, axis=-1)
 
 

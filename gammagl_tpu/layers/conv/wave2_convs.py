@@ -8,7 +8,7 @@ dna_conv.py, hcha_conv.py.
 
 from typing import Optional, Sequence
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax
 import jax.numpy as jnp
 

@@ -6,7 +6,7 @@ reference materializes dense N x N edge-feature tensors with Python loops
 `segment_softmax`, so cost is O(E) and the whole layer stays inside jit.
 """
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax.numpy as jnp
 
 from gammagl_tpu.layers.conv.message_passing import MessagePassing

@@ -1,7 +1,7 @@
 """Global graph pooling (reference: gammagl/layers/pool/glob.py:5-117).
 
 `batch` maps nodes to graphs; reductions are segment ops over it, so pooling
-shares the same TPU kernels as message passing.
+shares the same segment ops as message passing.
 """
 
 import jax.numpy as jnp

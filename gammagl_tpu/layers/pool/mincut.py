@@ -7,7 +7,7 @@ Two entry points:
 - ``dense_mincut_pool(x, adj, s)`` — the reference's dense formulation
   (N x N adjacency), kept for small graphs and parity tests.
 - ``sparse_mincut_losses(s, edge_index, num_nodes, edge_weight)`` — the
-  TPU-native path: both regularizers only need *traces* of S^T A S and
+  sparse path: both regularizers only need *traces* of S^T A S and
   S^T D S, which reduce to per-edge dot products (an SDDMM) and a
   degree-weighted row-norm sum — no N^2 adjacency ever materializes, so
   the mincut objective scales to graphs where the reference's

@@ -34,7 +34,7 @@ class DataLoader:
     """Iterate a dataset in collated batches.
 
     Parameters mirror the reference loader; `pad=True` adds bucket padding
-    (net-new, required for stable jit shapes on TPU).
+    (net-new, required for stable jit shapes).
     """
 
     def __init__(self, dataset, batch_size=1, shuffle=False,

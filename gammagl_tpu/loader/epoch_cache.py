@@ -1,8 +1,6 @@
 """Epoch-level sample caching: amortize the host sampler across epochs.
 
-On a host whose sampler is slower than the TPU step (PERF_NOTES.md: at the
-Reddit protocol, sampling is ~60 of the 73 ms/batch on a 2-vCPU host), the
-standard trick is to reuse each epoch's sampled subgraphs for several
+On a host whose sampler is slower than the device step, the standard trick is to reuse each epoch's sampled subgraphs for several
 epochs ("lazy resampling"): epoch 0 pays the full sampling cost, epochs
 1..k-1 replay the cached batches (optionally in a new order), so their
 wall-clock is the pure device time. Gradient noise from reused samples is

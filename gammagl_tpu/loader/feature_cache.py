@@ -6,7 +6,7 @@ memory within a byte budget ("0.1G"), serves the rest from pinned CPU memory
 via UVA, and shares caches across GPUs with CUDA IPC handles
 (multifeat.py:85-113).
 
-TPU re-design:
+Re-design:
 - `DeviceFeatureCache` — the single-chip analog: hottest rows (by degree or
   any score) live in HBM as one dense jnp array; gathers on cached rows run
   on-device, misses fall back to a host numpy gather + `device_put` of only
@@ -16,7 +16,7 @@ TPU re-design:
   feature matrix is laid out row-sharded over a mesh axis with
   `jax.device_put(x, NamedSharding(mesh, P("dp", None)))`; `gather(idx)`
   runs as one jit'd take on the sharded array, letting XLA route
-  cross-device rows over ICI instead of host round-trips.
+  cross-device rows between devices instead of host round-trips.
 """
 
 import numpy as np
@@ -100,7 +100,7 @@ class ShardedFeatureStore(FeatureStore):
     multifeat.py:10-113).
 
     put_tensor shards over `axis`; get_tensor(index) gathers with one jit'd
-    take over the sharded array (ICI collectives inserted by XLA).
+    take over the sharded array (collectives inserted by XLA).
     """
 
     def __init__(self, mesh, axis="dp"):

@@ -2,7 +2,7 @@
 
 The reference has no distributed execution at all — its only multi-device
 facility is CUDA-IPC sampler/feature sharing (gammagl/gglspeedup/
-multigpusample.py:104-140). On a TPU pod every host runs the same SPMD
+multigpusample.py:104-140). Across hosts every process runs the same SPMD
 program, so the input pipeline must (a) give each host a disjoint seed
 shard, (b) sample minibatches host-locally, (c) pad them to identical
 static shapes, and (d) assemble *global* `jax.Array`s whose batch axis is

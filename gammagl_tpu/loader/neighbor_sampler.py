@@ -4,7 +4,7 @@ Reference: gammagl/loader/neighbor_sampler.py:29 -- yields
 (batch_size, n_id, [Adj(edge_index, e_id, size), ...]) outermost hop first,
 feeding GraphSAGE_Sample_Model (our GraphSAGESampleModel).
 
-TPU re-design: the per-hop blocks are built from ONE call into the native
+Re-design: the per-hop blocks are built from ONE call into the native
 multi-hop sampler (csrc/sampler.cpp), DGL-MFG style -- block l (outermost
 first) reuses every sampled edge whose destination participates in layer
 l's output (edges are emitted hop-major with monotonically growing local

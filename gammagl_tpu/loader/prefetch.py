@@ -1,6 +1,6 @@
 """Double-buffered host -> device prefetch.
 
-The TPU-native successor of the reference's gglspeedup tier (SURVEY.md
+The successor of the reference's gglspeedup tier (SURVEY.md
 section 2.6: GPU feature caches / IPC-shared samplers): a background thread
 runs the host sampler + collation and `jax.device_put`s the next batch while
 the current step computes, hiding transfer latency behind the step.

@@ -7,7 +7,7 @@ BFS tree, a short cycle (or fallback BFS sequence), and a truncated BFS
 sequence over the sampled subgraph with networkx, then disjoint-batches them
 by offsetting node ids by m * num_sub_nodes (rgt_loader.py:84-103).
 
-TPU re-design (host side, pure numpy — no networkx):
+Re-design (host side, pure numpy — no networkx):
 - BFS runs over a CSR adjacency of the *sampled* subgraph (arrays, not dict
   graphs).
 - The three structure graphs are emitted as ONE padded edge buffer each with

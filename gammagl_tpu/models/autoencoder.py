@@ -4,7 +4,7 @@ Reference: gammagl/models/vgae.py (GCN encoder, inner-product decoder,
 reconstruction + KL losses).
 """
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax
 import jax.numpy as jnp
 

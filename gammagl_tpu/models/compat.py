@@ -8,13 +8,13 @@ GMM, DNA, HCHA node-classification stacks; Sp2GCL's SpaSpeNode/Encoder/
 EigenMLP; SkipGram; DFAD student/generator; GCIL LogReg; AdaGAD ReModel;
 the AMP ELBO regression loss).
 
-Aliases are plain name bindings — the TPU-native implementation is the
+Aliases are plain name bindings — this package's implementation is the
 single source of truth; nothing here forks behavior.
 """
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
+from gammagl_tpu import nn
 import numpy as np
 
 from gammagl_tpu.layers.conv import (AGNNConv, DNAConv, FILMConv, GCNConv,
@@ -58,7 +58,7 @@ __all__ = [
     "GNN", "amp_elbo_regression_loss",
 ]
 
-# --- pure aliases (reference name -> TPU-native class) -------------------
+# --- pure aliases (reference name -> this package's class) --------------
 HEAT = HEATModel
 GraphSAGE_Full_Model = GraphSAGEModel
 GraphSAGE_Sample_Model = GraphSAGESampleModel
@@ -181,9 +181,8 @@ class HCHA(nn.Module):
 
 
 class FusedGATModel(nn.Module):
-    """GAT pinned to the fused flash-attention kernel (reference
-    fusedgat.py wraps dgNN). Precompute the plan once with
-    ``FusedGATConv.to_graph_format`` and pass it to every call."""
+    """GAT over FusedGATConv layers (reference fusedgat.py wraps dgNN).
+    Sort the edges once with ``FusedGATConv.to_graph_format``."""
 
     hidden_dim: int = 8
     num_class: int = 7
@@ -193,13 +192,13 @@ class FusedGATModel(nn.Module):
     to_graph_format = staticmethod(FusedGATConv.to_graph_format)
 
     @nn.compact
-    def __call__(self, x, edge_index, plan, num_nodes=None, train=False):
+    def __call__(self, x, edge_index, num_nodes=None, train=False):
         drop = nn.Dropout(self.drop_rate, deterministic=not train)
         h = FusedGATConv(self.hidden_dim, heads=self.heads)(
-            drop(x), edge_index, num_nodes, train=train, plan=plan)
+            drop(x), edge_index, num_nodes, train=train)
         h = nn.elu(h)
         return FusedGATConv(self.num_class, heads=1, concat=False)(
-            drop(h), edge_index, num_nodes, train=train, plan=plan)
+            drop(h), edge_index, num_nodes, train=train)
 
 
 # --- probes / heads -------------------------------------------------------

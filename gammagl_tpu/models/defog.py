@@ -6,7 +6,7 @@ XEyTransformerLayer from gammagl/layers/attention/defog_layer.py:267) and
 examples/defog/flow_matching.py (linear-interpolation noising of categorical
 node/edge types, Euler sampling toward the predicted clean distribution).
 
-All tensors are dense (B?, N, *) -- the ideal TPU shape regime. Here the
+All tensors are dense (B?, N, *) -- pure dense matmuls. Here the
 per-graph (no batch dim) variant is given; vmap for batches.
 """
 
@@ -14,7 +14,7 @@ import math
 from typing import Dict
 
 import numpy as np
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax
 import jax.numpy as jnp
 

@@ -9,7 +9,7 @@ runs on-device.
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax
 import jax.numpy as jnp
 

@@ -7,7 +7,7 @@ distillation trainers (examples/glnn, examples/ltd).
 from typing import Optional
 
 import numpy as np
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax
 import jax.numpy as jnp
 import optax

@@ -1,6 +1,6 @@
 """GAT / GATv2 models (reference: gammagl/models/{gat,gatv2}.py)."""
 
-import flax.linen as nn
+from gammagl_tpu import nn
 
 from gammagl_tpu.layers.conv import GATConv, GATV2Conv
 
@@ -13,23 +13,19 @@ class GATModel(nn.Module):
     heads: int = 8
     drop_rate: float = 0.6
     dtype: object = None
-    remat: bool = False
 
     @nn.compact
-    def __call__(self, x, edge_index, num_nodes=None, train=False,
-                 plan=None):
+    def __call__(self, x, edge_index, num_nodes=None, train=False):
         drop = nn.Dropout(self.drop_rate, deterministic=not train)
         x = drop(x)
         x = GATConv(self.hidden_dim, heads=self.heads,
-                    dropout_rate=self.drop_rate, dtype=self.dtype,
-                    remat=self.remat)(
-            x, edge_index, num_nodes, train=train, plan=plan)
+                    dropout_rate=self.drop_rate, dtype=self.dtype)(
+            x, edge_index, num_nodes, train=train)
         x = nn.elu(x)
         x = drop(x)
         return GATConv(self.num_class, heads=1, concat=False,
-                       dropout_rate=self.drop_rate, dtype=self.dtype,
-                       remat=self.remat)(
-            x, edge_index, num_nodes, train=train, plan=plan)
+                       dropout_rate=self.drop_rate, dtype=self.dtype)(
+            x, edge_index, num_nodes, train=train)
 
 
 class GATV2Model(nn.Module):
@@ -39,15 +35,14 @@ class GATV2Model(nn.Module):
     drop_rate: float = 0.6
 
     @nn.compact
-    def __call__(self, x, edge_index, num_nodes=None, train=False,
-                 plan=None):
+    def __call__(self, x, edge_index, num_nodes=None, train=False):
         drop = nn.Dropout(self.drop_rate, deterministic=not train)
         x = drop(x)
         x = GATV2Conv(self.hidden_dim, heads=self.heads,
                       dropout_rate=self.drop_rate)(
-            x, edge_index, num_nodes, train=train, plan=plan)
+            x, edge_index, num_nodes, train=train)
         x = nn.elu(x)
         x = drop(x)
         return GATV2Conv(self.num_class, heads=1, concat=False,
                          dropout_rate=self.drop_rate)(
-            x, edge_index, num_nodes, train=train, plan=plan)
+            x, edge_index, num_nodes, train=train)

@@ -1,6 +1,6 @@
 """GCN model (reference: gammagl/models/gcn.py:6)."""
 
-import flax.linen as nn
+from gammagl_tpu import nn
 
 from gammagl_tpu.layers.conv import GCNConv
 
@@ -19,12 +19,12 @@ class GCNModel(nn.Module):
 
     @nn.compact
     def __call__(self, x, edge_index, edge_weight=None, num_nodes=None,
-                 train=False, plan=None):
+                 train=False):
         drop = nn.Dropout(self.drop_rate, deterministic=not train)
         for _ in range(self.num_layers - 1):
             x = GCNConv(self.hidden_dim, norm=self.norm, dtype=self.dtype)(
-                x, edge_index, edge_weight, num_nodes, plan=plan)
+                x, edge_index, edge_weight, num_nodes)
             x = nn.relu(x)
             x = drop(x)
         return GCNConv(self.num_class, norm=self.norm, dtype=self.dtype)(
-            x, edge_index, edge_weight, num_nodes, plan=plan)
+            x, edge_index, edge_weight, num_nodes)

@@ -12,7 +12,7 @@ Llama (via `transformers`) drops in unchanged.
 from typing import Callable, Optional, Sequence
 
 import numpy as np
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax
 import jax.numpy as jnp
 

@@ -4,7 +4,7 @@ Reference: gammagl/models/graphormer.py -- centrality + spatial encodings,
 stacked dense-attention layers, virtual-node-free mean readout.
 """
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax.numpy as jnp
 
 from gammagl_tpu.layers.attention.graphormer import (

@@ -7,7 +7,7 @@ list of per-layer bipartite adjacency blocks from the neighbor sampler
 
 from typing import Sequence
 
-import flax.linen as nn
+from gammagl_tpu import nn
 
 from gammagl_tpu.layers.conv import SAGEConv
 
@@ -23,18 +23,17 @@ class GraphSAGEModel(nn.Module):
     dtype: object = None
 
     @nn.compact
-    def __call__(self, x, edge_index, num_nodes=None, train=False,
-                 plan=None):
+    def __call__(self, x, edge_index, num_nodes=None, train=False):
         drop = nn.Dropout(self.drop_rate, deterministic=not train)
         for _ in range(self.num_layers - 1):
             x = SAGEConv(self.hidden_dim, aggr=self.aggr,
                          dtype=self.dtype)(
-                x, edge_index, num_nodes, plan=plan)
+                x, edge_index, num_nodes)
             x = nn.relu(x)
             x = drop(x)
         return SAGEConv(self.num_class, aggr=self.aggr,
                         dtype=self.dtype)(
-            x, edge_index, num_nodes, plan=plan)
+            x, edge_index, num_nodes)
 
 
 class GraphSAGESampleModel(nn.Module):

@@ -9,7 +9,7 @@ metapath-derived positives.
 
 from typing import Dict, Sequence, Tuple
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax
 import jax.numpy as jnp
 

@@ -5,7 +5,7 @@ Reference: gammagl/models/{rgcn,han,hgt,simplehgn}.py.
 
 from typing import Dict, Optional, Tuple
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax.numpy as jnp
 
 from gammagl_tpu.layers.conv.rgcn_conv import RGCNConv
@@ -24,15 +24,14 @@ class RGCNModel(nn.Module):
     num_layers: int = 2
 
     @nn.compact
-    def __call__(self, x, edge_index, edge_type, num_nodes=None,
-                 plan=None):
+    def __call__(self, x, edge_index, edge_type, num_nodes=None):
         x = RGCNConv(self.in_channels, self.hidden_channels,
                      self.num_relations, num_bases=self.num_bases)(
-            x, edge_index, edge_type, num_nodes, plan=plan)
+            x, edge_index, edge_type, num_nodes)
         x = nn.relu(x)
         return RGCNConv(self.hidden_channels, self.num_class,
                         self.num_relations, num_bases=self.num_bases)(
-            x, edge_index, edge_type, num_nodes, plan=plan)
+            x, edge_index, edge_type, num_nodes)
 
 
 class HANModel(nn.Module):
@@ -45,12 +44,11 @@ class HANModel(nn.Module):
 
     @nn.compact
     def __call__(self, x_dict, edge_index_dict, num_nodes_dict=None,
-                 train=False, plan_dict=None):
+                 train=False):
         out = HANConv(out_channels=self.hidden_channels,
                       metadata=self.metadata, heads=self.heads,
                       dropout_rate=self.drop_rate)(
-            x_dict, edge_index_dict, num_nodes_dict, train=train,
-            plan_dict=plan_dict)
+            x_dict, edge_index_dict, num_nodes_dict, train=train)
         h = out[self.target_ntype]
         return nn.Dense(self.num_class)(h)
 
@@ -66,7 +64,7 @@ class HGTModel(nn.Module):
 
     @nn.compact
     def __call__(self, x_dict, edge_index_dict, num_nodes_dict=None,
-                 train=False, plan_dict=None):
+                 train=False):
         # project every type into the shared hidden space first
         h_dict = {nt: nn.relu(nn.Dense(self.hidden_channels,
                                        name=f"proj__{nt}")(x))
@@ -75,8 +73,7 @@ class HGTModel(nn.Module):
             out = HGTConv(out_channels=self.hidden_channels,
                           metadata=self.metadata, heads=self.heads,
                           dtype=self.dtype, name=f"hgt_{i}")(
-                h_dict, edge_index_dict, num_nodes_dict, train=train,
-                plan_dict=plan_dict)
+                h_dict, edge_index_dict, num_nodes_dict, train=train)
             h_dict = {**h_dict, **out}
         return nn.Dense(self.num_class)(h_dict[self.target_ntype])
 
@@ -91,7 +88,7 @@ class SimpleHGNModel(nn.Module):
 
     @nn.compact
     def __call__(self, x, edge_index, edge_type, num_nodes=None,
-                 train=False, plan=None):
+                 train=False):
         alpha = None
         for i in range(self.num_layers):
             conv = SimpleHGNConv(out_channels=self.hidden_channels,
@@ -99,6 +96,6 @@ class SimpleHGNModel(nn.Module):
                                  heads=self.heads,
                                  dropout_rate=self.drop_rate)
             x, alpha = conv(x, edge_index, edge_type, num_nodes,
-                            alpha_prev=alpha, train=train, plan=plan)
+                            alpha_prev=alpha, train=train)
             x = nn.elu(x)
         return nn.Dense(self.num_class)(x)

@@ -7,7 +7,7 @@ structure-specific attention (BFS tree on H, cycles on S, BFS sequences on
 E), exchanged through tangent projections, and vector-quantized; training is
 self-supervised via commitment + cross-view InfoNCE losses.
 
-TPU notes: the reference sanitizes NaNs on the host after every block
+Design notes: the reference sanitizes NaNs on the host after every block
 (rgt.py:16-20,252-257) and falls back when the VQ output has NaNs
 (rgt.py:172-180) — host syncs inside the step. Here the geometry clamps
 (arccosh/arccos argument clipping in manifold_math) make those paths
@@ -17,7 +17,7 @@ from `loader/rgt_loader.py` with static (num_seeds, max_edges) shapes, so
 one compilation serves every batch.
 """
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax.numpy as jnp
 
 from gammagl_tpu.layers.attention.rgt import (EuclideanStructureLearner,

@@ -7,7 +7,7 @@ the SEAL paper (Zhang & Chen 2018).
 from typing import Sequence
 
 import numpy as np
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax
 import jax.numpy as jnp
 

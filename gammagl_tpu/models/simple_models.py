@@ -7,7 +7,7 @@ gprgnn,fagcn}.py.
 import math
 from typing import Sequence
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax.numpy as jnp
 
 from gammagl_tpu.layers.conv import (APPNPConv, ChebConv, FAGCNConv,
@@ -41,9 +41,9 @@ class SGCModel(nn.Module):
 
     @nn.compact
     def __call__(self, x, edge_index, edge_weight=None, num_nodes=None,
-                 train=False, plan=None):
+                 train=False):
         return SGConv(self.num_class, itera_k=self.itera_k)(
-            x, edge_index, edge_weight, num_nodes, plan=plan)
+            x, edge_index, edge_weight, num_nodes)
 
 
 class GINModel(nn.Module):
@@ -82,14 +82,14 @@ class APPNPModel(nn.Module):
 
     @nn.compact
     def __call__(self, x, edge_index, edge_weight=None, num_nodes=None,
-                 train=False, plan=None):
+                 train=False):
         drop = nn.Dropout(self.drop_rate, deterministic=not train)
         x = drop(x)
         x = nn.relu(nn.Dense(self.hidden_dim)(x))
         x = drop(x)
         x = nn.Dense(self.num_class)(x)
         return APPNPConv(itera_k=self.itera_k, alpha=self.alpha)(
-            x, edge_index, edge_weight, num_nodes, train=train, plan=plan)
+            x, edge_index, edge_weight, num_nodes, train=train)
 
 
 class GCNIIModel(nn.Module):
@@ -103,7 +103,7 @@ class GCNIIModel(nn.Module):
 
     @nn.compact
     def __call__(self, x, edge_index, edge_weight=None, num_nodes=None,
-                 train=False, plan=None):
+                 train=False):
         drop = nn.Dropout(self.drop_rate, deterministic=not train)
         x = drop(x)
         x = nn.relu(nn.Dense(self.hidden_dim)(x))
@@ -113,7 +113,7 @@ class GCNIIModel(nn.Module):
             x = drop(x)
             x = nn.relu(GCNIIConv(self.hidden_dim, beta=float(beta),
                                   alpha=self.alpha, variant=self.variant)(
-                x, x0, edge_index, edge_weight, num_nodes, plan=plan))
+                x, x0, edge_index, edge_weight, num_nodes))
         x = drop(x)
         return nn.Dense(self.num_class)(x)
 
@@ -129,12 +129,12 @@ class JKNet(nn.Module):
 
     @nn.compact
     def __call__(self, x, edge_index, edge_weight=None, num_nodes=None,
-                 train=False, plan=None):
+                 train=False):
         drop = nn.Dropout(self.drop_rate, deterministic=not train)
         xs = []
         for _ in range(self.num_layers):
             x = nn.relu(GCNConv(self.hidden_dim)(
-                x, edge_index, edge_weight, num_nodes, plan=plan))
+                x, edge_index, edge_weight, num_nodes))
             x = drop(x)
             xs.append(x)
         x = JumpingKnowledge(mode=self.mode)(xs)
@@ -149,13 +149,13 @@ class ChebNetModel(nn.Module):
 
     @nn.compact
     def __call__(self, x, edge_index, edge_weight=None, num_nodes=None,
-                 train=False, plan=None):
+                 train=False):
         drop = nn.Dropout(self.drop_rate, deterministic=not train)
         x = nn.relu(ChebConv(self.hidden_dim, K=self.K)(
-            x, edge_index, edge_weight, num_nodes, plan=plan))
+            x, edge_index, edge_weight, num_nodes))
         x = drop(x)
         return ChebConv(self.num_class, K=self.K)(
-            x, edge_index, edge_weight, num_nodes, plan=plan)
+            x, edge_index, edge_weight, num_nodes)
 
 
 class MixHopModel(nn.Module):
@@ -167,12 +167,12 @@ class MixHopModel(nn.Module):
 
     @nn.compact
     def __call__(self, x, edge_index, edge_weight=None, num_nodes=None,
-                 train=False, plan=None):
+                 train=False):
         drop = nn.Dropout(self.drop_rate, deterministic=not train)
         for _ in range(self.num_layers - 1):
             x = nn.relu(MixHopConv(self.hidden_dim // len(self.p),
                                    p=tuple(self.p))(
-                x, edge_index, edge_weight, num_nodes, plan=plan))
+                x, edge_index, edge_weight, num_nodes))
             x = drop(x)
         return nn.Dense(self.num_class)(x)
 
@@ -186,14 +186,14 @@ class GPRGNNModel(nn.Module):
 
     @nn.compact
     def __call__(self, x, edge_index, edge_weight=None, num_nodes=None,
-                 train=False, plan=None):
+                 train=False):
         drop = nn.Dropout(self.drop_rate, deterministic=not train)
         x = drop(x)
         x = nn.relu(nn.Dense(self.hidden_dim)(x))
         x = drop(x)
         x = nn.Dense(self.num_class)(x)
         return GPRConv(K=self.K, alpha=self.alpha)(
-            x, edge_index, edge_weight, num_nodes, plan=plan)
+            x, edge_index, edge_weight, num_nodes)
 
 
 class FAGCNModel(nn.Module):
@@ -203,8 +203,7 @@ class FAGCNModel(nn.Module):
     drop_rate: float = 0.4
 
     @nn.compact
-    def __call__(self, x, edge_index, num_nodes=None, train=False,
-                 plan=None):
+    def __call__(self, x, edge_index, num_nodes=None, train=False):
         drop = nn.Dropout(self.drop_rate, deterministic=not train)
         x = drop(x)
         x = nn.relu(nn.Dense(self.hidden_dim)(x))
@@ -213,5 +212,5 @@ class FAGCNModel(nn.Module):
         eps = 0.3
         for _ in range(self.num_layers):
             x = eps * h0 + FAGCNConv(self.hidden_dim)(
-                x, edge_index, num_nodes, train=train, plan=plan)
+                x, edge_index, num_nodes, train=train)
         return nn.Dense(self.num_class)(x)

@@ -7,7 +7,7 @@ gammagl/layers/conv/mgnni_m_iter.py.
 from typing import Optional
 
 import numpy as np
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax
 import jax.numpy as jnp
 
@@ -56,7 +56,7 @@ class SpecformerModel(nn.Module):
     transformer over Laplacian eigenvalues produces learned spectral
     filters; convolution = U diag(filter_m) U^T X per filter head.
 
-    All compute is dense matmul -- ideally suited to the MXU.
+    All compute is dense matmul.
     """
 
     num_class: int

@@ -5,7 +5,7 @@ Reference: gammagl/models/{dgi,grace,mvgrl,infograph,ggd}.py.
 
 from typing import Optional, Tuple
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax
 import jax.numpy as jnp
 

@@ -5,7 +5,7 @@ Reference: gammagl/models/{pna,compgcn,dgcnn,gaan}.py.
 
 from typing import Optional
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax.numpy as jnp
 
 from gammagl_tpu.layers.conv import (CompConv, EdgeConv, GaANConv, PNAConv)

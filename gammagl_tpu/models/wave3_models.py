@@ -8,7 +8,7 @@ rohehan,merit,grade,tadw}.py.
 from typing import Optional, Tuple
 
 import numpy as np
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax
 import jax.numpy as jnp
 

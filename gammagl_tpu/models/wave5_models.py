@@ -7,7 +7,7 @@ gammagl/layers/conv/{gcn_unifews.py:16-22, hardgat_conv.py}.
 from typing import Sequence, Tuple
 
 import numpy as np
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax
 import jax.numpy as jnp
 
@@ -24,7 +24,7 @@ class SIGNModel(nn.Module):
     """SIGN (Rossi 2020; reference sign.py + transforms/sign.py:7): the K
     propagated feature sets are precomputed once (transforms.SIGN); training
     is a pure MLP over [x, x1..xK] -- the aggregation leaves the train loop
-    entirely, the ideal TPU inner loop (only GEMMs)."""
+    entirely, leaving only GEMMs in the inner loop."""
 
     num_class: int
     hidden_dim: int = 64

@@ -6,7 +6,7 @@ Reference: gammagl/models/{magcl,gcil,sfgcn,edgeprompt,amp,dfad_gnn}.py.
 from typing import Sequence
 
 import numpy as np
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax
 import jax.numpy as jnp
 import optax

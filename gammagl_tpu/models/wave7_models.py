@@ -9,7 +9,7 @@ codebook (nodeid.py:39-67, host numpy in the reference) lives in a flax
 variable collection updated on-device.
 """
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax
 import jax.numpy as jnp
 
@@ -269,7 +269,7 @@ class NodeIDModel(nn.Module):
 
 
 def odeint_rk4(func, y0, t0, t1, num_steps=8):
-    """Fixed-step RK4 integrator as a `lax.scan` (TPU-native stand-in for
+    """Fixed-step RK4 integrator as a `lax.scan` (stand-in for
     the reference's torchdiffeq adapters, gnrf.py:26-198). Differentiable
     through the solver (discretize-then-optimize)."""
     dt = (t1 - t0) / num_steps

@@ -9,7 +9,7 @@ from collections import Counter
 
 import numpy as np
 
-import flax.linen as nn
+from gammagl_tpu import nn
 import jax.numpy as jnp
 
 from gammagl_tpu.layers.conv import GCNConv

@@ -2,9 +2,8 @@
 
 Collapses the reference's per-backend mpops matrix + C++/CUDA extensions
 (gammagl/mpops/__init__.py:10-29 backend switch; torch_ext/paddle_ext native
-modules) into one JAX surface: XLA scatter/gather baselines everywhere, with
-Pallas TPU kernels behind the same API for the sorted-CSR hot path
-(`gammagl_tpu.ops.pallas`).
+modules) into one JAX surface of XLA gathers, scatters and segment
+reductions.
 """
 
 from gammagl_tpu.ops.segment import (
@@ -13,6 +12,7 @@ from gammagl_tpu.ops.segment import (
     segment_max,
     segment_min,
     segment_count,
+    gather_rows,
     unsorted_segment_sum,
     unsorted_segment_mean,
     unsorted_segment_max,
@@ -35,6 +35,7 @@ __all__ = [
     "segment_max",
     "segment_min",
     "segment_count",
+    "gather_rows",
     "unsorted_segment_sum",
     "unsorted_segment_mean",
     "unsorted_segment_max",

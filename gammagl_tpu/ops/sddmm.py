@@ -8,11 +8,9 @@ gives the attention convs one shared hot path.
 
 import jax.numpy as jnp
 
+from gammagl_tpu.ops.segment import accum_dtype, gather_rows
+
 __all__ = ["sddmm", "sddmm_dot"]
-
-
-def _gather(x, idx):
-    return jnp.take(x, jnp.minimum(idx, x.shape[0] - 1), axis=0)
 
 
 def sddmm(edge_index, x_src, x_dst, op: str = "dot"):
@@ -22,10 +20,13 @@ def sddmm(edge_index, x_src, x_dst, op: str = "dot"):
     op='add' / 'mul' / 'sub' : (E,[H],F) elementwise combine
     """
     src, dst = edge_index[0], edge_index[1]
-    a = _gather(x_src, src)
-    b = _gather(x_dst, dst)
+    a = gather_rows(x_src, src)
+    b = gather_rows(x_dst, dst)
     if op == "dot":
-        return jnp.sum(a * b, axis=-1)
+        # bf16/f16 products are summed in f32, then cast back
+        dtype = jnp.result_type(a, b)
+        acc = accum_dtype(dtype)
+        return jnp.sum(a.astype(acc) * b.astype(acc), axis=-1).astype(dtype)
     if op == "add":
         return a + b
     if op == "mul":

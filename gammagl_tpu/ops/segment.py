@@ -1,6 +1,6 @@
 """Segment reductions -- the scatter-aggregate primitive of message passing.
 
-TPU-native replacement for the reference's multi-backend mpops dispatch
+The replacement for the reference's multi-backend mpops dispatch
 (reference: gammagl/mpops/torch.py:43,99,159 `unsorted_segment_{sum,mean,max}`
 and the C++/CUDA torch_ext kernels gammagl/mpops/torch_ext/src/segment_sum.cpp).
 On XLA all of these lower to a single scatter-add/max; the hand-written
@@ -27,6 +27,7 @@ __all__ = [
     "unsorted_segment_max",
     "unsorted_segment_min",
     "segment_count",
+    "gather_rows",
 ]
 
 
@@ -42,25 +43,78 @@ def _expand_ids(segment_ids, data):
     return segment_ids
 
 
+def _narrow_float(dtype):
+    return (jnp.issubdtype(dtype, jnp.floating)
+            and jnp.finfo(dtype).bits < 32)
+
+
+def accum_dtype(dtype):
+    """The dtype that products and sums of `dtype` data are formed in:
+    f32 for bf16/f16, else `dtype` itself."""
+    return jnp.float32 if _narrow_float(dtype) else dtype
+
+
+def _sum(data, segment_ids, num_segments):
+    """jax.ops.segment_sum that accumulates sub-f32 floats in f32 (a bf16
+    accumulator loses the sum of a high in-degree row); the result keeps
+    the input dtype."""
+    if _narrow_float(data.dtype):
+        return jax.ops.segment_sum(
+            data.astype(jnp.float32), segment_ids,
+            num_segments=num_segments).astype(data.dtype)
+    return jax.ops.segment_sum(data, segment_ids, num_segments=num_segments)
+
+
+def _take(x, idx):
+    return jnp.take(x, idx, axis=0, mode="clip")
+
+
+@jax.custom_jvp
+def _take_f32_grad(x, idx):
+    return _take(x, idx)
+
+
+@_take_f32_grad.defjvp
+def _take_f32_grad_jvp(primals, tangents):
+    # The tangent is gathered in f32, so its transpose -- the gradient, a
+    # scatter-add over `idx` -- accumulates in f32 like `_sum`.
+    x, idx = primals
+    t = tangents[0]
+    return (_take_f32_grad(x, idx),
+            _take(t.astype(jnp.float32), idx).astype(t.dtype))
+
+
+def gather_rows(x, idx):
+    """``x[idx]`` along axis 0, out-of-range ids clamped.
+
+    The gradient of a gather is a scatter-add over ``idx``; for bf16/f16
+    ``x`` it is accumulated in f32, as in `segment_sum`.
+    """
+    if _narrow_float(x.dtype):
+        return _take_f32_grad(x, idx)
+    return _take(x, idx)
+
+
 def segment_sum(data, segment_ids, num_segments):
     """Sum ``data`` rows into ``num_segments`` buckets by ``segment_ids``.
 
     Out-of-range ids (e.g. the padding id ``num_segments``) are dropped.
+    bf16/f16 data is accumulated in f32.
     """
     _expand_ids(segment_ids, data)
-    return jax.ops.segment_sum(data, segment_ids, num_segments=num_segments)
+    return _sum(data, segment_ids, num_segments)
 
 
 def segment_count(segment_ids, num_segments, dtype=jnp.float32):
     """Number of entries per segment (in-degree when ids are edge dsts)."""
     ones = jnp.ones(segment_ids.shape[0], dtype=dtype)
-    return jax.ops.segment_sum(ones, segment_ids, num_segments=num_segments)
+    return _sum(ones, segment_ids, num_segments)
 
 
 def segment_mean(data, segment_ids, num_segments):
     """Mean of ``data`` rows per segment; empty segments yield 0."""
     _expand_ids(segment_ids, data)
-    total = jax.ops.segment_sum(data, segment_ids, num_segments=num_segments)
+    total = _sum(data, segment_ids, num_segments)
     count = segment_count(segment_ids, num_segments, dtype=data.dtype)
     count = jnp.maximum(count, 1)
     return total / count.reshape((num_segments,) + (1,) * (data.ndim - 1))

@@ -12,7 +12,7 @@ division whose result is discarded by downstream masked reductions.
 
 import jax.numpy as jnp
 
-from gammagl_tpu.ops.segment import segment_max, segment_sum
+from gammagl_tpu.ops.segment import gather_rows, segment_max, segment_sum
 
 __all__ = ["segment_softmax"]
 
@@ -27,12 +27,11 @@ def segment_softmax(data, segment_ids, num_segments):
     num_segments : static int, number of nodes
     """
     max_values = segment_max(data, segment_ids, num_segments)
-    # Clamp so padded (out-of-range) ids gather row 0 instead of erroring.
-    gather_ids = jnp.minimum(segment_ids, num_segments - 1)
-    shifted = data - max_values[gather_ids]
+    # Padded (out-of-range) ids gather a clamped row instead of erroring.
+    shifted = data - gather_rows(max_values, segment_ids)
     exp = jnp.exp(shifted)
     # Zero the padded rows so they cannot pollute via the gather-clamp.
     valid = (segment_ids >= 0) & (segment_ids < num_segments)
     exp = jnp.where(valid.reshape((-1,) + (1,) * (data.ndim - 1)), exp, 0.0)
     denom = segment_sum(exp, segment_ids, num_segments)
-    return exp / (denom[gather_ids] + 1e-16)
+    return exp / (gather_rows(denom, segment_ids) + 1e-16)

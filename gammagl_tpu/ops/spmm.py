@@ -1,25 +1,39 @@
 """SpMM / BSpMM: fused message + aggregate over COO edges.
 
-TPU-native counterpart of the reference's gspmm/bspmm C++ autograd kernels
+Counterpart of the reference's gspmm/bspmm C++ autograd kernels
 (gammagl/mpops/torch.py:302,354; gammagl/mpops/torch_ext/src/gspmm.cpp:26-80).
 The reference hand-writes forward scatter + backward gather; here the forward
 is gather -> scale -> segment reduce, expressed so XLA fuses the gather and
 multiply into the scatter, and autodiff produces the transposed-graph SpMM
-backward for free.
+backward for free. This is the COO entry point used by `MessagePassing`.
 
-A Pallas fast path (`gammagl_tpu.ops.pallas.segment_matmul`) is available for
-row-sorted edges via `Graph.csr_plan`; this module is the format-agnostic COO
-entry point used by `MessagePassing`.
+bf16/f16 features are gathered in their own dtype; the scaling and the
+reduction, forward and backward, run in f32, and the result is cast back.
 """
 
 from typing import Optional
 
 import jax.numpy as jnp
 
-from gammagl_tpu.ops.segment import (segment_max, segment_mean, segment_min,
-                                     segment_sum)
+from gammagl_tpu.ops.segment import (accum_dtype, gather_rows, segment_max,
+                                     segment_mean, segment_min, segment_sum)
 
 __all__ = ["spmm", "bspmm", "gspmm"]
+
+_REDUCE = {"sum": segment_sum, "mean": segment_mean, "max": segment_max,
+           "min": segment_min}
+
+
+def _scaled_reduce(x, src, dst, w, w_shape, num_nodes, reduce):
+    if reduce not in _REDUCE:
+        raise ValueError(f"unknown reduce {reduce!r}")
+    out_dtype = x.dtype if w is None else jnp.result_type(x, w)
+    # The gather clamps OOB pad src; the scatter drops OOB dst, so pads
+    # are exact no-ops.
+    msg = gather_rows(x, src).astype(accum_dtype(out_dtype))
+    if w is not None:
+        msg = msg * w.astype(msg.dtype).reshape(w_shape)
+    return _REDUCE[reduce](msg, dst, num_nodes).astype(out_dtype)
 
 
 def spmm(edge_index, edge_weight, x, num_nodes: Optional[int] = None,
@@ -37,21 +51,8 @@ def spmm(edge_index, edge_weight, x, num_nodes: Optional[int] = None,
     """
     if num_nodes is None:
         num_nodes = x.shape[0]
-    src, dst = edge_index[0], edge_index[1]
-    # Clamp the gather (OOB pad src would otherwise clamp anyway; make it
-    # explicit) -- the scatter drops OOB dst so pads are exact no-ops.
-    msg = jnp.take(x, jnp.minimum(src, x.shape[0] - 1), axis=0)
-    if edge_weight is not None:
-        msg = msg * edge_weight.reshape((-1,) + (1,) * (x.ndim - 1))
-    if reduce == "sum":
-        return segment_sum(msg, dst, num_nodes)
-    if reduce == "mean":
-        return segment_mean(msg, dst, num_nodes)
-    if reduce == "max":
-        return segment_max(msg, dst, num_nodes)
-    if reduce == "min":
-        return segment_min(msg, dst, num_nodes)
-    raise ValueError(f"unknown reduce {reduce!r}")
+    return _scaled_reduce(x, edge_index[0], edge_index[1], edge_weight,
+                          (-1,) + (1,) * (x.ndim - 1), num_nodes, reduce)
 
 
 # Reference name (gammagl/mpops/torch.py:302).
@@ -70,14 +71,6 @@ def bspmm(edge_index, edge_weight, x, num_nodes: Optional[int] = None,
     """
     if num_nodes is None:
         num_nodes = x.shape[0]
-    src, dst = edge_index[0], edge_index[1]
-    msg = jnp.take(x, jnp.minimum(src, x.shape[0] - 1), axis=0)  # (E, H, F)
-    if edge_weight is not None:
-        msg = msg * edge_weight[..., None]
-    if reduce == "sum":
-        return segment_sum(msg, dst, num_nodes)
-    if reduce == "mean":
-        return segment_mean(msg, dst, num_nodes)
-    if reduce == "max":
-        return segment_max(msg, dst, num_nodes)
-    raise ValueError(f"unknown reduce {reduce!r}")
+    w_shape = None if edge_weight is None else edge_weight.shape + (1,)
+    return _scaled_reduce(x, edge_index[0], edge_index[1], edge_weight,
+                          w_shape, num_nodes, reduce)

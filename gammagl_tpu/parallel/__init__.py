@@ -2,7 +2,7 @@
 
 Net-new relative to the reference (it has no distributed training,
 SURVEY.md section 2.10). All scale-out is expressed through
-`jax.sharding.Mesh` + `shard_map` with XLA collectives over ICI/DCN.
+`jax.sharding.Mesh` + `shard_map` with XLA collectives.
 """
 
 from gammagl_tpu.parallel.mesh import (make_mesh, replicate, shard,
@@ -18,10 +18,6 @@ from gammagl_tpu.parallel.hier_halo import (HierHaloPartition,
                                             build_hier_halo_partition,
                                             make_hier_halo_spmm,
                                             traffic_report)
-from gammagl_tpu.parallel.halo_plan import (
-    PlannedHaloPartition, build_halo_partition_planned,
-    make_halo_spmm_planned, PlannedHierHaloPartition,
-    build_hier_halo_partition_planned, make_hier_halo_spmm_planned)
 from gammagl_tpu.parallel.halo_attention import (
     AttnHaloPartition, build_halo_partition_attn,
     make_partitioned_gat_layer)
@@ -30,7 +26,7 @@ from gammagl_tpu.parallel.strategies import (
     pipeline_apply, make_pipeline_apply, shard_pipeline_params,
     make_feature_sharded_spmm, relation_expert_spmm,
     make_relation_expert_spmm, shard_expert_weights)
-from gammagl_tpu.parallel.scaling import (HwModel, V5E,
+from gammagl_tpu.parallel.scaling import (HwModel, PEAKS, hw_model,
                                           halo_scaling_estimate)
 from gammagl_tpu.parallel.full_graph import (pad_nodes, unpad_nodes,
                                              shard_nodes,
@@ -60,12 +56,6 @@ __all__ = [
     "build_hier_halo_partition",
     "make_hier_halo_spmm",
     "traffic_report",
-    "PlannedHaloPartition",
-    "build_halo_partition_planned",
-    "make_halo_spmm_planned",
-    "PlannedHierHaloPartition",
-    "build_hier_halo_partition_planned",
-    "make_hier_halo_spmm_planned",
     "AttnHaloPartition",
     "build_halo_partition_attn",
     "make_partitioned_gat_layer",
@@ -85,6 +75,7 @@ __all__ = [
     "make_partitioned_gat_train",
     "estimate_hbm_gb",
     "HwModel",
-    "V5E",
+    "PEAKS",
+    "hw_model",
     "halo_scaling_estimate",
 ]

@@ -4,7 +4,7 @@ The graph world's context parallelism (SURVEY.md sections 5/7 -- net-new, no
 reference code): nodes are partitioned into contiguous row blocks, one per
 device along the 'dp' axis; destination-owned edges stay local, and the
 boundary ("halo") source features each device needs from its peers are
-exchanged with ONE `all_to_all` per layer, riding ICI. After the exchange,
+exchanged with ONE `all_to_all` per layer. After the exchange,
 aggregation is a purely local segment-sum into owned rows -- no psum over
 full feature matrices (unlike `gammagl_tpu.parallel.spmm`, which replicates
 features and all-reduces; that tier is for small graphs).
@@ -61,7 +61,7 @@ def _round_up(x, m):
 
 def _halo_sets(edge_index, num_nodes, num_parts, edge_weight=None,
                row_align=8):
-    """Shared host-side partition analysis (also used by halo_plan.py).
+    """Shared host-side partition analysis (also used by halo_attention.py).
 
     Returns (rows_per, H, part_edges, halo, send_idx):
       part_edges[p] = (sub (2,E_p) global ids, w_p, src_owner_p)
@@ -173,7 +173,7 @@ def build_halo_partition(edge_index, num_nodes, num_parts,
 def make_halo_spmm(mesh: Mesh, part: HaloPartition, axis: str = "dp"):
     """Jit-able halo SpMM: (x_sharded (P*rows_per, F)) -> same sharding.
 
-    Per device: gather send rows -> all_to_all over ICI -> local
+    Per device: gather send rows -> all_to_all -> local
     segment-sum of [own | halo] features into owned rows.
     """
     rows_per, H, nparts = part.rows_per, part.halo_per_peer, part.num_parts

@@ -10,16 +10,13 @@ Only source features cross the wire, with the same one-per-layer
 
 Per device and layer:
   1. exchange halo rows of the (projected, multi-head) features;
-  2. scores a_src·h_src + a_dst·h_dst in PLAN PADDED ORDER directly
-     (gathers by `src_pad` / `row_global` — no original-edge-order
-     detour), LeakyReLU, masked segment softmax over owned rows;
-  3. per-head aggregation on the Pallas segment-matmul with the
-     per-step alpha as the traced one-hot weights
-     (`segment_matmul_dyn_vjp` — gradients flow to alpha and messages).
+  2. scores a_src·h_src + a_dst·h_dst over the device's dst-sorted edges,
+     LeakyReLU, segment softmax over owned rows;
+  3. alpha-weighted segment sum of the gathered source rows.
 
-`make_partitioned_gat_layer` is the reusable layer; `masked softmax`
-pads are exact no-ops (score -inf, weight 0) so padded edges never
-leak into numerators, denominators, or gradients.
+`make_partitioned_gat_layer` is the reusable layer. Padded edges point at
+a dump row (`rows_per`) that is dropped, so they never reach numerators,
+denominators or gradients.
 """
 
 from functools import partial
@@ -31,8 +28,6 @@ import jax.numpy as jnp
 from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-from gammagl_tpu.ops.pallas.segment_matmul import (build_csr_plan,
-                                                   segment_matmul_dyn_vjp)
 from gammagl_tpu.parallel.halo import _halo_sets
 
 __all__ = ["AttnHaloPartition", "build_halo_partition_attn",
@@ -40,50 +35,27 @@ __all__ = ["AttnHaloPartition", "build_halo_partition_attn",
 
 
 class AttnHaloPartition(NamedTuple):
-    """Single-class planned layout over the combined [own | halo] table.
+    """Per-device edges over the combined [own | halo] source table.
 
-    Unlike `PlannedHaloPartition` there is no interior/boundary split:
-    the softmax needs every incoming edge's score before any
-    aggregation, so the exchange is on the critical path regardless.
-    Per-edge attention weights are NOT baked in — they are a traced
-    kernel operand each step.
+    The softmax needs every incoming edge's score before any aggregation,
+    so the exchange is on the critical path; per-edge attention weights
+    are computed each step.
     """
-    send_idx: np.ndarray   # (P, P, H)
-    src_pad: np.ndarray    # (P, T*ET) into the combined table
-    local_row: np.ndarray  # (P, T, 1, ET)
-    tile_block: np.ndarray  # (P, T)
-    tile_first: np.ndarray  # (P, T)
-    row_global: np.ndarray  # (P, T*ET) local dst row, pads -> rows_per slot
-    valid: np.ndarray      # (P, T*ET) float32 1/0
+    send_idx: np.ndarray   # (P, P, H) local rows each owner sends a peer
+    src_local: np.ndarray  # (P, E_max) into the combined table
+    dst_local: np.ndarray  # (P, E_max) owned dst row, pads -> rows_per
     num_parts: int
     rows_per: int
     halo_per_peer: int
     num_nodes: int
-    R: int
-    ET: int
-
-    @property
-    def nblocks(self):
-        return -(-self.rows_per // self.R)
-
-    @property
-    def E_pad(self):
-        return int(self.src_pad.shape[1])
 
 
-def _round8(x):
-    return max(8, (x // 8) * 8)
-
-
-def build_halo_partition_attn(edge_index, num_nodes, num_parts, R=256,
-                              ET=512):
-    """Halo partition + per-device kernel plans for attention layers."""
+def build_halo_partition_attn(edge_index, num_nodes, num_parts):
+    """Halo partition for attention layers: each device's incoming edges,
+    sorted by destination and padded to one length."""
     rows_per, H, part_edges, halo, send_idx = _halo_sets(
         edge_index, num_nodes, num_parts)
-    R = min(R, _round8(rows_per))
-    nblocks = -(-rows_per // R)
-
-    plans = []
+    srcs, dsts = [], []
     for p in range(num_parts):
         sub, _, src_owner = part_edges[p]
         dst_local = sub[1] - p * rows_per
@@ -97,42 +69,22 @@ def build_halo_partition_attn(edge_index, num_nodes, num_parts, R=256,
             if sel.any():
                 pos = np.searchsorted(halo[p][q], sub[0][sel])
                 src_local[sel] = rows_per + q * H + pos
-        plan = build_csr_plan(src_local, dst_local, rows_per,
-                              num_src=rows_per + num_parts * H, R=R, ET=ET)
-        plans.append(plan)
-
-    T_max = max(p.T for p in plans)
-    src_pad, lr, tb, tf, rowg, valid = [], [], [], [], [], []
-    for plan in plans:
-        pad_t = T_max - plan.T
-        pad_e = pad_t * ET
-        src_pad.append(np.pad(plan.src_pad, (0, pad_e)))
-        lr.append(np.pad(plan.local_row, (0, pad_e),
-                         constant_values=R).reshape(T_max, 1, ET))
-        tb.append(np.pad(plan.tile_block, (0, pad_t),
-                         constant_values=nblocks - 1))
-        tf.append(np.pad(plan.tile_first, (0, pad_t)))
-        # pads -> the dump slot rows_per (segment ops sized rows_per+1)
-        rg = np.where(plan.valid, np.minimum(plan.row_global, rows_per),
-                      rows_per)
-        rowg.append(np.pad(rg, (0, pad_e), constant_values=rows_per))
-        valid.append(np.pad(plan.valid.astype(np.float32), (0, pad_e)))
+        order = np.argsort(dst_local, kind="stable")
+        srcs.append(src_local[order])
+        dsts.append(dst_local[order])
+    e_max = max(1, max(len(d) for d in dsts))
+    src_pad = np.stack([np.pad(s_, (0, e_max - len(s_))) for s_ in srcs])
+    dst_pad = np.stack([np.pad(d, (0, e_max - len(d)),
+                               constant_values=rows_per) for d in dsts])
     return AttnHaloPartition(
-        send_idx=send_idx,
-        src_pad=np.stack(src_pad).astype(np.int32),
-        local_row=np.stack(lr).astype(np.int32),
-        tile_block=np.stack(tb).astype(np.int32),
-        tile_first=np.stack(tf).astype(np.int32),
-        row_global=np.stack(rowg).astype(np.int32),
-        valid=np.stack(valid),
-        num_parts=num_parts, rows_per=rows_per, halo_per_peer=H,
-        num_nodes=num_nodes, R=R, ET=ET)
+        send_idx=send_idx, src_local=src_pad.astype(np.int32),
+        dst_local=dst_pad.astype(np.int32), num_parts=num_parts,
+        rows_per=rows_per, halo_per_peer=H, num_nodes=num_nodes)
 
 
 def make_partitioned_gat_layer(mesh: Mesh, part: AttnHaloPartition,
                                num_heads, axis: str = "dp",
-                               negative_slope: float = 0.2,
-                               interpret: bool = False):
+                               negative_slope: float = 0.2):
     """GAT attention layer over the partition (reference semantics:
     gammagl/layers/conv/gat_conv.py:7 — score LeakyReLU(a_src·h_s +
     a_dst·h_d), edge softmax per destination, weighted aggregation).
@@ -145,15 +97,12 @@ def make_partitioned_gat_layer(mesh: Mesh, part: AttnHaloPartition,
     Differentiable in all three arguments.
     """
     rows_per, Hh, nparts = part.rows_per, part.halo_per_peer, part.num_parts
-    R, ET, nblocks = part.R, part.ET, part.nblocks
-    E_pad = part.E_pad
-    T = E_pad // ET
     heads = int(num_heads)
 
     @partial(shard_map, mesh=mesh,
-             in_specs=(P(axis),) + (P(axis),) * 6 + (P(), P()),
+             in_specs=(P(axis),) * 4 + (P(), P()),
              out_specs=P(axis), check_vma=False)
-    def _layer(h_blk, send_idx, src_pad, lr, tb, tf, rowg, a_src, a_dst):
+    def _layer(h_blk, send_idx, src_local, dst_local, a_src, a_dst):
         F = h_blk.shape[1]
         Fh = F // heads
         send = jnp.take(h_blk, send_idx[0].reshape(-1), axis=0,
@@ -167,32 +116,27 @@ def make_partitioned_gat_layer(mesh: Mesh, part: AttnHaloPartition,
                           a_src.astype(jnp.float32))
         ad_n = jnp.einsum("lhf,hf->lh", t3[:rows_per].astype(jnp.float32),
                           a_dst.astype(jnp.float32))
-        src = src_pad[0]
-        rows = rowg[0]
+        src, rows = src_local[0], dst_local[0]
+        def seg(v):
+            return jax.ops.segment_sum(v, rows, rows_per + 1,
+                                       indices_are_sorted=True)
+
         e = jnp.take(as_n, src, axis=0, mode="clip") \
             + jnp.take(jnp.pad(ad_n, ((0, 1), (0, 0))), rows, axis=0)
-        e = jax.nn.leaky_relu(e, negative_slope)          # (E_pad, H)
+        e = jax.nn.leaky_relu(e, negative_slope)          # (E, H)
         e = jnp.where(rows[:, None] < rows_per, e, -jnp.inf)
-        m = jax.ops.segment_max(e, rows, rows_per + 1)
+        m = jax.ops.segment_max(e, rows, rows_per + 1,
+                                indices_are_sorted=True)
         m = jnp.where(jnp.isfinite(m), m, 0.0)            # empty rows
         ex = jnp.where(rows[:, None] < rows_per,
                        jnp.exp(e - jnp.take(m, rows, axis=0)), 0.0)
-        s = jax.ops.segment_sum(ex, rows, rows_per + 1)
-        alpha = ex / jnp.take(jnp.maximum(s, 1e-16), rows, axis=0)
-        # per-head kernel aggregation; alpha is the traced one-hot weight
-        msg = jnp.take(table, src, axis=0, mode="clip").reshape(
-            E_pad, heads, Fh)
-        outs = []
-        for h in range(heads):
-            w2d = alpha[:, h].reshape(T, 1, ET).astype(h_blk.dtype)
-            outs.append(segment_matmul_dyn_vjp(
-                msg[:, h], w2d, lr[0], tb[0], tf[0], R=R, ET=ET,
-                nblocks=nblocks, interpret=interpret)[:rows_per])
-        return jnp.concatenate(outs, axis=-1)
+        alpha = ex / jnp.take(jnp.maximum(seg(ex), 1e-16), rows, axis=0)
+        msg = jnp.take(t3, src, axis=0, mode="clip")       # (E, H, Fh)
+        out = seg(msg * alpha[..., None].astype(msg.dtype))
+        return out[:rows_per].reshape(rows_per, F)
 
     consts = [np.asarray(a) for a in
-              (part.send_idx, part.src_pad, part.local_row,
-               part.tile_block, part.tile_first, part.row_global)]
+              (part.send_idx, part.src_local, part.dst_local)]
 
     def layer(h_sharded, a_src, a_dst):
         return _layer(h_sharded, *consts, a_src, a_dst)

@@ -1,23 +1,23 @@
-"""Two-level (multi-slice) halo exchange: ICI within a slice, DCN across.
+"""Two-level halo exchange: one level within a host, one across hosts.
 
-`gammagl_tpu.parallel.halo` assumes one ICI domain: every boundary row
-moves with a single flat `all_to_all`, and a row needed by k devices of a
-remote slice crosses the slow inter-slice link k times. This module is the
-multi-slice tier (SURVEY.md sections 5/7 -- net-new, the reference has no
-distributed execution at all): the mesh is 2-D `('slice', 'dp')`, nodes are
-partitioned slice-major into contiguous blocks, and each layer's boundary
-exchange runs in three phases:
+`gammagl_tpu.parallel.halo` assumes one fast interconnect: every boundary
+row moves with a single flat `all_to_all`, and a row needed by k devices of
+a remote host crosses the slow inter-host link k times. This module is the
+multi-host tier (SURVEY.md sections 5/7 -- net-new, the reference has no
+distributed execution at all): the mesh is 2-D `('slice', 'dp')` (one
+slice per host), nodes are partitioned slice-major into contiguous blocks,
+and each layer's boundary exchange runs in three phases:
 
-  1. **intra** -- `all_to_all` over `dp` (ICI): same-slice halo rows,
-     exactly the single-level scheme per slice.
-  2. **inter** -- `all_to_all` over `slice` (DCN): halo rows deduplicated
-     at *slice* granularity. `R[s][t][d]` = rows owned by device `(s, d)`
-     that ANY device of slice `t` references; each such row crosses DCN
-     once per consumer slice, and because the `dp` coordinate is held
-     fixed the DCN traffic is spread across all `D` per-host links of the
-     slice instead of funneling through one.
-  3. **redistribute** -- `all_gather` over `dp` (ICI): the received
-     inter-slice rows are shared within the consumer slice, giving every
+  1. **intra** -- `all_to_all` over `dp` (intra-host): same-host halo rows,
+     exactly the single-level scheme per host.
+  2. **inter** -- `all_to_all` over `slice` (inter-host): halo rows
+     deduplicated at *host* granularity. `R[s][t][d]` = rows owned by
+     device `(s, d)` that ANY device of host `t` references; each such row
+     crosses the inter-host link once per consumer host, and because the
+     `dp` coordinate is held fixed the traffic is spread across all `D`
+     devices' network links of the host instead of funneling through one.
+  3. **redistribute** -- `all_gather` over `dp` (intra-host): the received
+     inter-host rows are shared within the consumer host, giving every
      device the same `(D, S, H2)` halo table.
 
 Local edge lists are pre-remapped on the host so source ids index the
@@ -25,9 +25,9 @@ concatenated ``[own rows | intra halo | inter halo]`` table; aggregation is
 then a purely local segment-sum (pads scatter-dropped), identical in spirit
 to `halo.make_halo_spmm`.
 
-`traffic_report` quantifies the win: DCN bytes/layer under this scheme vs
-the flat single-level `all_to_all` (which would push every duplicate row
-across DCN).
+`traffic_report` quantifies the win: inter-host bytes/layer under this
+scheme vs the flat single-level `all_to_all` (which would push every
+duplicate row across the inter-host link).
 """
 
 from functools import partial
@@ -60,9 +60,9 @@ class HierHaloPartition(NamedTuple):
     h_intra: int             # H1
     h_inter: int             # H2
     num_nodes: int
-    # DCN/ICI row counts for traffic_report (valid, un-padded)
+    # inter-/intra-host row counts for traffic_report (valid, un-padded)
     inter_rows: int          # sum over (s,t,d) |R[s][t][d]|
-    inter_rows_flat: int     # what a flat all_to_all would push across DCN
+    inter_rows_flat: int     # what a flat all_to_all would push across hosts
     intra_rows: int
     # balanced relabeling (default-on; see halo.HaloPartition.node_perm)
     node_perm: object = None
@@ -203,9 +203,9 @@ def make_hier_halo_spmm(mesh: Mesh, part: HierHaloPartition,
     """Jit-able two-level halo SpMM over a ('slice','dp') mesh.
 
     x is (S*D*rows_per, F) sharded P(('slice','dp')) along the node dim;
-    output keeps that sharding. Per device: ICI all_to_all (intra) + DCN
-    all_to_all (inter, dp coordinate fixed) + ICI all_gather, then a local
-    segment-sum into owned rows.
+    output keeps that sharding. Per device: intra-host all_to_all +
+    inter-host all_to_all (dp coordinate fixed) + intra-host all_gather,
+    then a local segment-sum into owned rows.
     """
     slice_ax, dp_ax = axes
     S, D = part.num_slices, part.dp_per_slice
@@ -247,18 +247,20 @@ def make_hier_halo_spmm(mesh: Mesh, part: HierHaloPartition,
 def traffic_report(part: HierHaloPartition, feat_dim, dtype=jnp.bfloat16):
     """Per-layer boundary-traffic estimate, in bytes.
 
-    ``dcn_flat`` is what a single flat all_to_all over all S*D devices
-    would move across the inter-slice link (every consumer-device copy of
-    a remote row crosses DCN); ``dcn`` is this module's slice-deduped
-    volume. ``ici`` counts intra-slice halo rows plus the redistribute
-    all_gather ((D-1)/D of the inter table re-crosses ICI).
+    ``inter_host_bytes_flat`` is what a single flat all_to_all over all
+    S*D devices would move across the inter-host link (every
+    consumer-device copy of a remote row crosses it);
+    ``inter_host_bytes`` is this module's host-deduped volume.
+    ``intra_host_bytes`` counts same-host halo rows plus the redistribute
+    all_gather ((D-1)/D of the inter table is copied again within the
+    host).
     """
     b = int(jnp.dtype(dtype).itemsize) * int(feat_dim)
     D = part.dp_per_slice
-    dcn = part.inter_rows * b
-    dcn_flat = part.inter_rows_flat * b
-    ici = part.intra_rows * b + (D - 1) * part.inter_rows * b
-    return {"dcn_bytes": dcn, "dcn_bytes_flat": dcn_flat,
-            "dcn_dedup_factor": (part.inter_rows_flat
-                                 / max(1, part.inter_rows)),
-            "ici_bytes": ici}
+    inter = part.inter_rows * b
+    inter_flat = part.inter_rows_flat * b
+    intra = part.intra_rows * b + (D - 1) * part.inter_rows * b
+    return {"inter_host_bytes": inter, "inter_host_bytes_flat": inter_flat,
+            "dedup_factor": (part.inter_rows_flat
+                             / max(1, part.inter_rows)),
+            "intra_host_bytes": intra}

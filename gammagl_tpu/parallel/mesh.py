@@ -1,8 +1,8 @@
 """Device mesh helpers.
 
 Net-new vs the reference (SURVEY.md section 2.10: GammaGL has no distributed
-execution). Scale-out here is expressed the TPU way: a named
-`jax.sharding.Mesh` + `shard_map`/`pjit`, with XLA collectives over ICI.
+execution). Scale-out here is a named `jax.sharding.Mesh` +
+`shard_map`/`pjit`, with XLA collectives between the devices.
 """
 
 from typing import Optional, Sequence, Tuple

@@ -11,7 +11,7 @@ Partition strategies:
     only the gather of src features crosses chips (done as replication at
     small scale, halo exchange at large scale).
   * `partition_edges_uniform` -- balanced edge count regardless of dst; local
-    partial aggregates are summed with `psum` (scatter-add over ICI).
+    partial aggregates are summed with `psum` (an all-reduce between devices).
 """
 
 from typing import NamedTuple
@@ -19,8 +19,7 @@ from typing import NamedTuple
 import numpy as np
 
 __all__ = ["EdgePartition", "partition_edges_by_dst",
-           "partition_edges_uniform", "balance_permutation",
-           "cluster_permutation"]
+           "partition_edges_uniform", "balance_permutation"]
 
 
 class EdgePartition(NamedTuple):
@@ -35,7 +34,7 @@ class EdgePartition(NamedTuple):
 
 def _pad_shards(shards, wshards, num_nodes, num_parts):
     e_max = max(s.shape[1] for s in shards)
-    # round up to 128 for TPU-friendly lane alignment
+    # round up to 128 so shard shapes repeat across graphs of similar size
     e_max = -(-e_max // 128) * 128
     ei = np.full((num_parts, 2, e_max), num_nodes, dtype=np.int32)
     w = np.zeros((num_parts, e_max), dtype=np.float32)
@@ -81,55 +80,6 @@ def partition_edges_uniform(edge_index, num_nodes, num_parts,
     ei_p, w_p = _pad_shards(shards, wshards, num_nodes, num_parts)
     return EdgePartition(ei_p, w_p, np.zeros(num_parts, np.int32),
                          num_parts, num_nodes)
-
-
-def cluster_permutation(edge_index, num_nodes, rounds=8):
-    """Community-clustering node relabeling via vectorized label
-    propagation (METIS-style objective, numpy-only): each round every
-    node adopts the most common label among its (undirected) neighbors;
-    nodes are then laid out cluster-contiguously.
-
-    Purpose: raise the block-pair kernel's `fill_ratio` on graphs with
-    community structure — cluster-contiguous ids make the
-    (dst_block, src_block) tiling dense, which is what lets the
-    gather-free one-hot-matmul SpMM (`ops/pallas/block_pair.py`) beat
-    the CSR-gather kernel (PERF_NOTES: 258M vs 182M edges/s at fill >=
-    0.8). RCM optimizes bandwidth, which suits banded meshes; label
-    propagation finds blocks on clustered/social graphs where RCM's
-    band is loose. On structure-free random graphs neither helps — use
-    `Graph.reorder_best()` which measures and picks.
-
-    Returns (perm, inv): relabel edges with ``inv[ei]``, node data with
-    ``x[perm]`` (the `reorder_bandwidth` contract).
-    """
-    ei = np.asarray(edge_index)
-    und_src = np.concatenate([ei[0], ei[1]]).astype(np.int64)
-    und_dst = np.concatenate([ei[1], ei[0]]).astype(np.int64)
-    labels = np.arange(num_nodes, dtype=np.int64)
-    for _ in range(rounds):
-        nl = labels[und_src]
-        order = np.lexsort((nl, und_dst))
-        d_s, l_s = und_dst[order], nl[order]
-        change = np.nonzero((d_s[1:] != d_s[:-1])
-                            | (l_s[1:] != l_s[:-1]))[0] + 1
-        starts = np.concatenate([[0], change, [len(d_s)]])
-        run_node = d_s[starts[:-1]]
-        run_label = l_s[starts[:-1]]
-        run_count = np.diff(starts)
-        # per node: the label with the highest count (ties -> smaller
-        # label, for determinism)
-        o2 = np.lexsort((run_label, -run_count, run_node))
-        first = np.concatenate([[True],
-                                run_node[o2][1:] != run_node[o2][:-1]])
-        new = labels.copy()
-        new[run_node[o2][first]] = run_label[o2][first]
-        if np.array_equal(new, labels):
-            break
-        labels = new
-    perm = np.lexsort((np.arange(num_nodes), labels)).astype(np.int64)
-    inv = np.empty(num_nodes, np.int64)
-    inv[perm] = np.arange(num_nodes)
-    return perm, inv
 
 
 def balance_permutation(edge_index, num_nodes, num_parts, row_align=8):

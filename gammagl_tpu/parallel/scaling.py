@@ -1,86 +1,97 @@
 """Analytical compute/communication scaling model for partitioned
 full-graph training (BASELINE target: >=75% edges/s efficiency from 1
-host to N).
+device to N).
 
 The halo-partitioned layer does, per device and per layer:
-  compute: local SpMM over E_p edges (HBM-gather bound, NOT FLOPs
-           bound -- see PERF_NOTES.md "gather wall") + dense GEMMs
-  comm:    one all_to_all of P*H boundary feature rows over ICI
-           (intra-slice) and/or DCN (across slices)
+  compute: local SpMM over E_p edges (memory-bandwidth bound, not FLOP
+           bound) + dense GEMMs
+  comm:    one all_to_all of P*H boundary feature rows between the
+           devices of a host and/or across hosts (hier tier)
 
-Efficiency is estimated from a roofline on those two terms. With the
-planned-halo tier the exchange overlaps interior aggregation
-(parallel/halo_plan.py), so the overlapped estimate applies; the flat
-tier pays the serial sum.
+The estimate is the serial sum of those two terms: the halo tiers run the
+exchange before the aggregation that needs it.
 
-Hardware constants default to TPU v5e; override for other parts.
+Peak rates come from `PEAKS`, keyed by `jax.Device.device_kind`; a device
+not in the table is an error, never a default.
 """
 
 from typing import NamedTuple
 
-import numpy as np
-
-__all__ = ["HwModel", "V5E", "halo_scaling_estimate"]
+__all__ = ["HwModel", "PEAKS", "hw_model", "halo_scaling_estimate"]
 
 
 class HwModel(NamedTuple):
-    """Per-chip hardware model (defaults: TPU v5e)."""
-    hbm_gbps: float = 819.0          # HBM bandwidth, GB/s
-    ici_gbps: float = 186.0          # ICI bandwidth per chip, GB/s
-    dcn_gbps: float = 25.0           # DCN bandwidth per host, GB/s
-    bf16_tflops: float = 197.0       # MXU peak, TFLOP/s
-    spmm_edges_per_s: float = 180e6  # measured bf16 F=256 (BENCH_r01)
+    """Published per-device peak rates."""
+    hbm_gbps: float      # device memory bandwidth, GB/s
+    link_gbps: float     # device-to-device link, GB/s each way
+    bf16_tflops: float   # dense bf16 matrix peak, TFLOP/s
 
 
-V5E = HwModel()
+# NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3, NVLink 900 GB/s total
+# (450 GB/s each way), 989 TFLOP/s dense bf16, at the 700 W power limit.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": HwModel(hbm_gbps=3350.0, link_gbps=450.0,
+                                     bf16_tflops=989.0),
+}
+
+
+def hw_model(device_kind: str) -> HwModel:
+    """Peak rates of `device_kind`; raises KeyError for a device with no
+    published entry in `PEAKS`."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(f"no peak rates for device kind {device_kind!r}; "
+                       f"known: {sorted(PEAKS)}") from None
 
 
 def halo_scaling_estimate(num_parts, edges_per_part, halo_rows_sent,
-                          feat_dim, itemsize=2, hw: HwModel = V5E,
-                          dcn_rows_sent=0, overlap=True,
-                          total_edges=None):
+                          feat_dim, spmm_edges_per_s, hw: HwModel,
+                          itemsize=2, inter_host_rows_sent=0,
+                          inter_host_gbps=None, total_edges=None):
     """Roofline estimate of halo-partitioned SpMM scaling efficiency.
 
     Args:
       num_parts: devices in the partition.
       edges_per_part: max edges owned by one device (padded count).
-      halo_rows_sent: boundary rows one device sends over ICI per layer
-        (sum over peers; the all_to_all also receives ~the same).
+      halo_rows_sent: boundary rows one device sends to the devices of
+        its host per layer (sum over peers; the all_to_all also receives
+        ~the same).
       feat_dim: feature width of the exchanged/aggregated activations.
+      spmm_edges_per_s: the single-device SpMM rate, measured on the
+        device `hw` describes.
+      hw: the device's `HwModel` (see `hw_model`).
       itemsize: bytes per element (2 = bf16).
-      dcn_rows_sent: rows crossing slice boundaries (hier tier), if any.
-      overlap: True models the planned tier (exchange hidden behind
-        interior aggregation); False models the flat tier (serial).
+      inter_host_rows_sent: rows crossing host boundaries (hier tier);
+        needs `inter_host_gbps`, the network rate of the deployment.
 
     Returns dict with per-layer times (s) and the estimated efficiency
     vs a single device running the whole graph at the same edge rate
     (the BASELINE ">=75% edges/s 1->N" metric).
     """
-    t_compute = edges_per_part / hw.spmm_edges_per_s
-    ici_bytes = halo_rows_sent * feat_dim * itemsize
-    dcn_bytes = dcn_rows_sent * feat_dim * itemsize
-    t_ici = ici_bytes / (hw.ici_gbps * 1e9)
-    t_dcn = dcn_bytes / (hw.dcn_gbps * 1e9)
-    t_comm = t_ici + t_dcn
-    if overlap:
-        t_layer = max(t_compute, t_comm)
-    else:
-        t_layer = t_compute + t_comm
+    if inter_host_rows_sent and inter_host_gbps is None:
+        raise ValueError("inter_host_rows_sent needs inter_host_gbps")
+    t_compute = edges_per_part / spmm_edges_per_s
+    link_bytes = halo_rows_sent * feat_dim * itemsize
+    host_bytes = inter_host_rows_sent * feat_dim * itemsize
+    t_link = link_bytes / (hw.link_gbps * 1e9)
+    t_host = (host_bytes / (inter_host_gbps * 1e9)
+              if inter_host_rows_sent else 0.0)
+    t_layer = t_compute + t_link + t_host
     if total_edges is None:
         total_edges = edges_per_part * num_parts  # incl. padding
-    # efficiency: useful edges/s of the N-device run vs N chips each
+    # efficiency: useful edges/s of the N-device run vs N devices each
     # running at the single-device rate (padding edges are NOT useful
     # throughput, so pass true total_edges when known)
-    eff = ((total_edges / t_layer) / (num_parts * hw.spmm_edges_per_s)
+    eff = ((total_edges / t_layer) / (num_parts * spmm_edges_per_s)
            if t_layer > 0 else 1.0)
     return {
         "num_parts": int(num_parts),
         "t_compute_s": t_compute,
-        "t_ici_s": t_ici,
-        "t_dcn_s": t_dcn,
+        "t_link_s": t_link,
+        "t_inter_host_s": t_host,
         "t_layer_s": t_layer,
-        "ici_bytes": int(ici_bytes),
-        "dcn_bytes": int(dcn_bytes),
-        "overlap": bool(overlap),
+        "link_bytes": int(link_bytes),
+        "inter_host_bytes": int(host_bytes),
         "efficiency": float(min(eff, 1.0)),
     }

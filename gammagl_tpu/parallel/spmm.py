@@ -4,10 +4,10 @@ Each device holds one edge shard ((2, E_shard) padded) and the full feature
 matrix (replicated at this tier; the halo-exchange tier in
 `gammagl_tpu.parallel.halo` shards features too). Local scatter-aggregate
 runs on-chip; the partial sums are combined with `psum` over the edge axis --
-XLA lowers this to an ICI all-reduce.
+XLA lowers this to an all-reduce.
 
 This is net-new capability vs the reference (SURVEY.md section 2.10), built
-the scaling-book way: annotate, shard_map, collectives over ICI.
+the scaling-book way: annotate, shard_map, collectives.
 """
 
 from functools import partial

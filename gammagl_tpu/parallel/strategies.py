@@ -2,7 +2,7 @@
 and relation-expert (ep) execution.
 
 The reference has NO distributed execution (SURVEY.md section 2.10) — these
-are net-new TPU-native components expressed with `shard_map` over a named
+are net-new components expressed with `shard_map` over a named
 mesh, XLA collectives only (`ppermute`, `psum`):
 
 - `pipeline_apply` — GPipe over layers: stage s (one mesh slot along the
@@ -162,7 +162,7 @@ def make_relation_expert_spmm(mesh, num_nodes, axis="ep"):
         ours = (local_rel >= 0) & (local_rel < per)
         rel_c = jnp.clip(local_rel, 0, per - 1)
         # per-edge transform with the owning expert's matrix: gather the
-        # (F_in, F_out) expert per edge and contract -- batched on the MXU
+        # (F_in, F_out) expert per edge and contract -- one batched contraction
         xe = jnp.take(x, src, axis=0, mode="clip")
         we = jnp.take(w_local, rel_c, axis=0)
         msg = jnp.einsum("ef,efo->eo", xe, we)

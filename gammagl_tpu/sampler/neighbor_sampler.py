@@ -1,7 +1,7 @@
 """Host-side fixed-fanout neighbor sampling.
 
 Reference algorithm: gammagl/ops/sparse/cpu/neighbor_sample.cpp:22 (multi-hop
-fanout loop over CSC with hash-map relabeling). The TPU twist (SURVEY.md
+fanout loop over CSC with hash-map relabeling). The twist (SURVEY.md
 section 2.2): output is **padded to fixed fanout** so every minibatch has
 static shapes -- node buffers padded with `n_id = num_sampled` (masked), edge
 buffers padded with OOB dst.

@@ -2,7 +2,7 @@
 
 The reference has no deployment story beyond pickled weights
 (SURVEY.md §5 — `net.save_weights` npz files that need the full Python
-stack to use). TPU-native serving is different in kind: a jitted forward
+stack to use). Serving here is different in kind: a jitted forward
 with params baked in exports to a **StableHLO artifact** (`jax.export`)
 that reloads and runs without the model's Python code, or AOT-compiles
 in-process so the first request pays no trace/compile latency.
@@ -45,8 +45,8 @@ def export_forward(apply_fn: Callable, params: Any,
                    example_inputs: Sequence, platforms=None,
                    **apply_kwargs):
     """Export `apply_fn(params, *inputs, **apply_kwargs)` with the params
-    baked in as constants. Returns a `jax.export.Exported` (serialize()
-    for bytes). `platforms` e.g. ("tpu",) or ("cpu", "tpu") for a
+    baked in as constants. Returns a `jax.export.Exported` (write it with
+    `save_exported`). `platforms` e.g. ("cuda",) or ("cpu", "cuda") for a
     multi-platform artifact; defaults to the current backend."""
     fn = jax.jit(lambda *inputs: apply_fn(params, *inputs,
                                           **apply_kwargs))
@@ -56,14 +56,15 @@ def export_forward(apply_fn: Callable, params: Any,
 
 def save_exported(exported, path):
     """Write a serialized export artifact (StableHLO + calling
-    convention) to disk."""
+    convention) to disk. `jax.export`'s serializer needs the
+    `flatbuffers` package."""
     with open(path, "wb") as f:
         f.write(exported.serialize())
 
 
 def load_exported(path):
-    """Reload an artifact; `.call(*inputs)` runs it on the current
-    backend (no model Python code needed)."""
+    """Reload an artifact written by `save_exported`; `.call(*inputs)` runs
+    it on the current backend (no model Python code needed)."""
     with open(path, "rb") as f:
         return _export.deserialize(f.read())
 
@@ -72,8 +73,8 @@ class InferenceSession:
     """In-process AOT-compiled forward: trace + compile happen at
     construction, so the first request runs at steady-state latency.
 
-    compute_dtype: cast float inputs (e.g. bf16 features halve HBM
-    gather traffic, PERF_NOTES.md); the output is returned as produced
+    compute_dtype: cast float inputs (e.g. bf16 features halve the
+    gather traffic); the output is returned as produced
     by the model (typically f32 logits).
     donate: donate input buffers of the listed argument positions
     (serving loops that overwrite their input each request).
@@ -253,7 +254,7 @@ class MicroBatcher:
             bucket = next(b for b in self.buckets if b >= n)
             try:
                 # batching is HOST-side numpy: per-item device ops would
-                # pay the RPC floor each (PERF_NOTES.md item 4)
+                # each pay a dispatch
                 def _stack(*ls):
                     arr = np.stack([np.asarray(l) for l in ls])
                     if bucket > n:

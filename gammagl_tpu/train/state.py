@@ -6,11 +6,11 @@ This supersedes it (SURVEY.md section 5): params + optimizer state + step
 serialized together, so training resumes exactly.
 """
 
+import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
-import flax
-import flax.struct
 import jax
 import optax
 
@@ -18,16 +18,22 @@ __all__ = ["TrainState", "save_checkpoint", "load_checkpoint",
            "save_checkpoint_sharded", "load_checkpoint_sharded"]
 
 
-@flax.struct.dataclass
+@functools.partial(jax.tree_util.register_dataclass,
+                   data_fields=["step", "params", "opt_state"],
+                   meta_fields=["tx"])
+@dataclasses.dataclass(frozen=True)
 class TrainState:
     step: int
     params: Any
     opt_state: Any
-    tx: optax.GradientTransformation = flax.struct.field(pytree_node=False)
+    tx: optax.GradientTransformation
 
     @classmethod
     def create(cls, params, tx):
         return cls(step=0, params=params, opt_state=tx.init(params), tx=tx)
+
+    def replace(self, **updates):
+        return dataclasses.replace(self, **updates)
 
     def apply_gradients(self, grads):
         updates, opt_state = self.tx.update(grads, self.opt_state,
@@ -37,24 +43,32 @@ class TrainState:
                             opt_state=opt_state)
 
 
+def _payload(state):
+    return {"step": state.step, "params": state.params,
+            "opt_state": state.opt_state}
+
+
 def save_checkpoint(path, state: TrainState):
-    """Serialize step + params + optimizer state to one msgpack file."""
-    payload = {"step": state.step, "params": state.params,
-               "opt_state": state.opt_state}
-    payload = flax.serialization.to_state_dict(
-        jax.tree_util.tree_map(lambda x: jax.device_get(x), payload))
-    data = flax.serialization.msgpack_serialize(payload)
+    """Write step + params + optimizer state to one `.npz` file, one entry
+    per leaf, keyed by its tree path."""
+    leaves = jax.tree_util.tree_flatten_with_path(_payload(state))[0]
+    arrays = {jax.tree_util.keystr(k): np.asarray(jax.device_get(v))
+              for k, v in leaves}
     with open(path, "wb") as f:
-        f.write(data)
+        np.savez(f, **arrays)
 
 
 def load_checkpoint(path, state: TrainState) -> TrainState:
     """Restore into an existing state (template provides structure/tx)."""
-    with open(path, "rb") as f:
-        raw = flax.serialization.msgpack_restore(f.read())
-    template = {"step": state.step, "params": state.params,
-                "opt_state": state.opt_state}
-    restored = flax.serialization.from_state_dict(template, raw)
+    template = _payload(state)
+    paths, treedef = jax.tree_util.tree_flatten_with_path(template)
+    with np.load(path) as data:
+        missing = [jax.tree_util.keystr(k) for k, _ in paths
+                   if jax.tree_util.keystr(k) not in data]
+        if missing:
+            raise ValueError(f"checkpoint {path} lacks {missing[:5]}")
+        leaves = [data[jax.tree_util.keystr(k)] for k, _ in paths]
+    restored = jax.tree_util.tree_unflatten(treedef, leaves)
     return state.replace(step=int(restored["step"]),
                          params=restored["params"],
                          opt_state=restored["opt_state"])

@@ -20,7 +20,8 @@ from gammagl_tpu.utils.shortest_path import shortest_path
 from gammagl_tpu.utils.smiles import from_smiles
 from gammagl_tpu.utils import manifold_math
 from gammagl_tpu.utils.unifews_log import (UniFewsLogger, ModelLogger, LayerNumLogger, F1Calculator, Stopwatch)
-from gammagl_tpu.utils.profiling import chain_time, trace, device_timer
+from gammagl_tpu.utils.profiling import median_time, trace, device_timer
+from gammagl_tpu.utils.compile_cache import enable_compile_cache
 from gammagl_tpu.utils import gfm_utils
 from gammagl_tpu.utils.conversation import (Conversation, conv_templates,
                                             get_conv_template)
@@ -40,7 +41,8 @@ from gammagl_tpu.utils.compute_dtype import (set_compute_dtype,
     get_compute_dtype, compute_dtype, resolve_dtype)
 
 __all__ = [
-    "chain_time",
+    "median_time",
+    "enable_compile_cache",
     "trace",
     "device_timer",
     "calc_A_norm_hat",

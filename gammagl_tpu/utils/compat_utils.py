@@ -81,7 +81,7 @@ def node_subgraph(graph, node_idx, num_hops=2):
 def set_device(id=0, platform=None):
     """Pin default JAX device (reference device.py pins the TLX GPU).
 
-    On TPU there is normally one process-local default; this selects among
+    JAX has one process-local default device; this selects among
     visible devices and returns the chosen one.
     """
     import jax

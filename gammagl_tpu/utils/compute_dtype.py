@@ -1,8 +1,8 @@
-"""Global compute-dtype context (TPU bf16 recipe, one switch).
+"""Global compute-dtype context (the bf16 recipe, one switch).
 
 The reference's numerics are whatever the active TLX backend defaults to;
-on TPU the idiomatic split is **params f32, compute bf16** (PERF_NOTES.md:
-the bf16 feature path is the 2x headline). Each conv/model takes a local
+the split used here is **params f32, compute bf16** (bf16 features halve
+the bytes every gather and scatter moves). Each conv/model takes a local
 `dtype=` knob; this module adds a process-global default so a whole model
 can flip with one line:
 

@@ -86,16 +86,16 @@ def _safe_norm(x, axis=-1, keepdims=True, eps=1e-12):
 # Reference: gammagl/layers/conv/rgt_layers.py:40-452 wraps geoopt manifolds
 # (Euclidean:40, ProductSpace:95, Sphere:151, Lorentz:291) in stateful torch
 # modules whose Frechet_mean computes `num_segments` on the host
-# (rgt_layers.py:384-398) -- a sync point every layer. The TPU re-design makes
-# each manifold a frozen, hashable value object (safe as a static flax module
+# (rgt_layers.py:384-398) -- a sync point every layer. The re-design makes
+# each manifold a frozen, hashable value object (safe as a static module
 # field) whose methods are pure jnp with *static* segment counts, so the whole
 # RGT forward stays inside one XLA program. Distances to code-books reduce to
-# batched GEMMs (cinner) that map onto the MXU.
+# batched GEMMs (cinner).
 # ---------------------------------------------------------------------------
 
 
 class _Manifold:
-    """Base: hashable by (type, curvature) so flax treats it as static."""
+    """Base: hashable by (type, curvature) so a module field treats it as static."""
 
     k = 1.0
 
@@ -299,7 +299,7 @@ class LorentzM(_Manifold):
         return d if keepdim else jnp.squeeze(d, -1) if d.shape[-1] == 1 else d
 
     def pairwise_dist(self, x, codes):
-        """(N,d) x (C,d) -> (N,C): the cinner is one MXU GEMM."""
+        """(N,d) x (C,d) -> (N,C): the cinner is one GEMM."""
         flip = jnp.concatenate([-x[..., :1], x[..., 1:]], -1)
         arg = jnp.maximum(-(flip @ codes.T) / self.k, 1.0 + 1e-5)
         return jnp.sqrt(self.k) * jnp.arccosh(arg)

@@ -3,7 +3,7 @@
 Reference: gammagl/gglspeedup/prunes_gamma.py (`ThrInPrune`, `rewind`,
 `prune`) and the unifews conv variants (gammagl/layers/conv/
 gcn_unifews.py:16-22): entry-wise thresholding of weights and of
-message/edge contributions. On TPU, pruning is realized as masking (XLA has
+message/edge contributions. Here pruning is realized as masking (XLA has
 no sparsity win for irregular masks, but the capability -- accuracy under
 operator sparsification -- is preserved and measurable).
 """

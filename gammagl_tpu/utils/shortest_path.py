@@ -4,7 +4,7 @@
 Reference: gammagl/utils/shortest_path.py (networkx all-pairs BFS per
 graph, ragged dict output). Here the hot path is scipy's C BFS over a
 CSR adjacency, and `bucketed_spatial_encoding` emits the STATIC-shape
-padded batches the TPU needs: per-bucket (B, S, S) int32 distance
+padded batches jit needs: per-bucket (B, S, S) int32 distance
 tensors with clamped distances, so one jit specialization serves every
 graph that falls in the bucket (SURVEY.md §7 padding discipline; the
 reference never faces this because eager backends tolerate ragged

@@ -2,8 +2,8 @@
 
 Reference: gammagl/utils/{logger_unifews.py,metric_unifews.py} (~700 LoC):
 run-directory Logger with CSV result rows, ModelLogger early-stop +
-best-checkpoint tracking, LayerNumLogger, F1Calculator, Stopwatch. The TPU
-build keeps the same surface on flax param pytrees (checkpoints are pickled
+best-checkpoint tracking, LayerNumLogger, F1Calculator, Stopwatch. This
+build keeps the same surface on param pytrees (checkpoints are pickled
 pytrees instead of torch state_dicts) and jnp-native F1 accumulation.
 """
 

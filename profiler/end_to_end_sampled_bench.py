@@ -3,8 +3,8 @@
 Reference point (reference profiler/sampler/readme.md:10-24, sampling-only
 epoch over Reddit with fanout [25,10], batch 1024): PyG 9.47 s, GGL-CPU
 11.26 s, GGL-GPU 2.28 s. This bench measures the FULL training epoch
-(sample + pad + feature fetch + fwd/bwd step) for the TPU-native pipeline:
-C++ host sampler (OpenMP presample chunks) -> bucket padding -> HBM-resident
+(sample + pad + feature fetch + fwd/bwd step) for this pipeline:
+C++ host sampler (OpenMP presample chunks) -> bucket padding -> device-resident
 feature gather (DeviceFeatureCache) -> jit'd SAGE step, with host work
 pipelined behind the device step.
 
@@ -39,6 +39,8 @@ def main():
                          "resampling epochs; also times a replay epoch")
     args = ap.parse_args()
 
+    from gammagl_tpu.utils import enable_compile_cache
+    enable_compile_cache()
     from gammagl_tpu.loader import DeviceFeatureCache, pipeline
     from gammagl_tpu.data.padding import size_bucket
     from gammagl_tpu.models import GraphSAGESampleModel

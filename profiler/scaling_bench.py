@@ -61,7 +61,7 @@ def main():
               f"scaling-eff {eff:5.1%}")
 
     # two-level (slice x dp) tier: same SpMM over a 2-slice mesh with
-    # slice-deduped DCN traffic (parallel/hier_halo.py)
+    # host-deduped inter-host traffic (parallel/hier_halo.py)
     if len(devices) >= 4:
         from gammagl_tpu.parallel.hier_halo import (
             build_hier_halo_partition, make_hier_halo_spmm, traffic_report)
@@ -83,9 +83,9 @@ def main():
         dt = (time.perf_counter() - t0) / args.iters
         rep = traffic_report(part, args.feat, jnp.float32)
         print(f"hier {S}x{D}: {dt * 1e3:8.2f} ms  "
-              f"{args.edges / dt:10.3e} edges/s  DCN "
-              f"{rep['dcn_bytes'] / 1e6:.1f} MB/layer "
-              f"(dedup {rep['dcn_dedup_factor']:.1f}x vs flat)")
+              f"{args.edges / dt:10.3e} edges/s  inter-host "
+              f"{rep['inter_host_bytes'] / 1e6:.1f} MB/layer "
+              f"(dedup {rep['dedup_factor']:.1f}x vs flat)")
 
 
 if __name__ == "__main__":

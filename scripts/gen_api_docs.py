@@ -19,7 +19,7 @@ sys.path.insert(0, ROOT)
 
 PACKAGES = [
     ("gammagl_tpu.ops", "Kernels: segment ops, SpMM, SDDMM, softmax"),
-    ("gammagl_tpu.ops.pallas", "Pallas TPU kernels (plans, flash attention)"),
+    ("gammagl_tpu.nn", "Module system (flax.linen interface)"),
     ("gammagl_tpu.data", "Graph / HeteroGraph / Batch / Dataset"),
     ("gammagl_tpu.datasets", "Dataset zoo"),
     ("gammagl_tpu.loader", "Loaders, samplers, prefetch, caches"),
@@ -30,7 +30,7 @@ PACKAGES = [
     ("gammagl_tpu.models", "Model zoo"),
     ("gammagl_tpu.transforms", "Transforms"),
     ("gammagl_tpu.utils", "Utilities"),
-    ("gammagl_tpu.parallel", "Multi-chip execution"),
+    ("gammagl_tpu.parallel", "Multi-device execution"),
     ("gammagl_tpu.train", "Train state, losses, checkpointing"),
     ("gammagl_tpu.serve", "Serving: AOT sessions, StableHLO export, "
      "micro-batching"),
@@ -47,7 +47,7 @@ def first_para(doc):
             break
         if ln.strip():
             lines.append(ln.strip())
-    # flax dataclasses embed constructor reprs with run-specific addresses
+    # dataclass modules embed constructor reprs with run-specific addresses
     return re.sub(r" at 0x[0-9a-f]+", "", " ".join(lines))
 
 

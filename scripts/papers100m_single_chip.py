@@ -1,18 +1,19 @@
-"""papers100M single-chip sustained demo (VERDICT round-1 item 6).
+"""papers100M single-device sustained demo.
 
-Builds the largest per-chip shard of a papers100M-shaped graph that fits
-the local HBM budget (sized with `parallel.estimate_hbm_gb`), trains an
-L-layer partitioned GCN on the planned-halo tier for N epochs, and
-records sustained ms/epoch + effective edges/s to a JSON artifact.
+Builds the largest per-device shard of a papers100M-shaped graph that fits
+a share of the device's memory (`memory_stats()["bytes_limit"]`, sized
+with `parallel.estimate_hbm_gb`), trains an L-layer partitioned GCN on the
+flat halo tier for N epochs, and records sustained ms/epoch + effective
+edges/s as JSON.
 
 The BASELINE.json target line is "GCN epoch time on ogbn-papers100M".
 The reference (BUPT-GAMMA/GammaGL) has NO full-graph story at this scale
 — its largest-graph path is host-side neighbor sampling
 (reference gammagl/ops/sparse/cpu/neighbor_sample.cpp) — so the artifact
 also extrapolates the measured per-chip rate to the full 1.62B-edge
-graph on the smallest pod slice that fits it.
+graph on the fewest devices that hold it.
 
-    python scripts/papers100m_single_chip.py --out PAPERS100M_r03.json
+    python scripts/papers100m_single_chip.py --out chiprun_out/papers100m.json
 """
 
 import argparse
@@ -50,29 +51,16 @@ def solve_scale(hbm_gb, feat_dim, hidden, layers):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--hbm-gb", type=float, default=8.0,
-                    help="device budget for the shard (leave headroom "
-                    "for planned-tier tile padding + XLA scratch on a "
-                    "16 GB v5e)")
+    ap.add_argument("--mem-frac", type=float, default=0.5,
+                    help="share of the device's bytes_limit the shard's "
+                    "estimate may take (the rest is XLA scratch)")
     ap.add_argument("--epochs", type=int, default=12)
     ap.add_argument("--hidden", type=int, default=256)
     ap.add_argument("--layers", type=int, default=3)
     ap.add_argument("--feat-dim", type=int, default=128)
     ap.add_argument("--scale", type=float, default=None,
                     help="override the HBM-solved shard scale")
-    ap.add_argument("--out", default="PAPERS100M_r03.json")
-    ap.add_argument("--R", type=int, default=1024,
-                    help="kernel row-block size; large shards want a big "
-                    "R to cut the >=1-tile-per-row-block floor across "
-                    "the many src-block plans")
-    ap.add_argument("--xla-spmm", action="store_true",
-                    help="flat XLA tier instead of planned Pallas")
-    ap.add_argument("--ET", type=int, default=512,
-                    help="edge-tile size; smaller ET cuts the per-"
-                    "(dst-block, src-block) ceil padding (~34% at "
-                    "ET=512 on the 3.6M shard: 756 avg edges/cell)")
-    ap.add_argument("--src-blocks", type=int, default=None,
-                    help="override auto_src_blocks (gather slice count)")
+    ap.add_argument("--out", default=None, help="also write the JSON here")
     ap.add_argument("--monolithic", action="store_true",
                     help="single-jit train step (the staged per-layer "
                     "default fits ~1.5x larger shards; see "
@@ -82,16 +70,17 @@ def main():
     import jax
     import jax.numpy as jnp
     from papers100m.papers100m_trainer import synthetic_papers
-    from gammagl_tpu.parallel import (balance_permutation,
-                                      build_halo_partition,
-                                      build_halo_partition_planned,
-                                      estimate_hbm_gb, make_mesh,
+    from gammagl_tpu.parallel import (build_halo_partition,
+                                      estimate_hbm_gb, hw_model, make_mesh,
                                       make_partitioned_gcn_train,
                                       shard_nodes)
-    from gammagl_tpu.parallel.halo_plan import auto_src_blocks
-    from gammagl_tpu.utils import calc_gcn_norm_np
+    from gammagl_tpu.utils import calc_gcn_norm_np, enable_compile_cache
 
-    scale = args.scale or solve_scale(args.hbm_gb, args.feat_dim,
+    enable_compile_cache()
+    dev = jax.devices()[0]
+    hw = hw_model(dev.device_kind)
+    budget_gb = args.mem_frac * dev.memory_stats()["bytes_limit"] / 1e9
+    scale = args.scale or solve_scale(budget_gb, args.feat_dim,
                                       args.hidden, args.layers)
     t0 = time.perf_counter()
     ei, x, y, train, val, c = synthetic_papers(scale)
@@ -107,24 +96,13 @@ def main():
     ei = np.concatenate(
         [np.asarray(ei), np.tile(np.arange(n, dtype=np.int64), (2, 1))], 1)
     w = calc_gcn_norm_np(ei, n)
-    mesh = make_mesh(axis_names=("dp",))
-    planned = not args.xla_spmm and jax.default_backend() == "tpu"
-    if planned:
-        nsb = args.src_blocks or auto_src_blocks(
-            n, max(f, args.hidden), jnp.bfloat16)
-        part = build_halo_partition_planned(ei, n, 1, w, R=args.R,
-                                            ET=args.ET,
-                                            num_src_blocks=nsb)
-    else:
-        part = build_halo_partition(ei, n, 1, w)
-    print(f"partition ({'planned' if planned else 'flat'}): "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    mesh = make_mesh(devices=[dev], axis_names=("dp",))
+    part = build_halo_partition(ei, n, 1, w)
+    print(f"partition: {time.perf_counter() - t0:.1f}s", flush=True)
 
     t0 = time.perf_counter()
     # bf16 feature residency: the trainer consumes features in
-    # compute_dtype anyway, real papers100M ships fp16 features, and f32
-    # residency cost ~0.9 GB + f32-wide gather temps -- the difference
-    # between OOM and fitting at scale 0.032 (17.41G > 15.75G HBM)
+    # compute_dtype anyway and real papers100M ships fp16 features
     import jax.numpy as _jnp
     xs = shard_nodes(x, mesh, part, dtype=_jnp.bfloat16)
     ys = shard_nodes(y, mesh, part)
@@ -159,47 +137,41 @@ def main():
     sustained = sorted(times[2:])[len(times[2:]) // 2]  # median, post-jit
     eps = ei.shape[1] / sustained
     chips_for_full = -(-PAPERS_N // n)
-    # per-layer epoch work scales with local edges; the multichip halo
-    # roofline (parallel/scaling.py, measured-overlap model) gives the
-    # efficiency multiplier for the extrapolation
-    from gammagl_tpu.parallel.scaling import HwModel, halo_scaling_estimate
-    # use the measured whole-step edge rate as the compute term: it is
-    # FASTER than any single layer's SpMM pass, which overstates t_comm
-    # relative to t_compute -> a conservative efficiency estimate
-    hw = HwModel(spmm_edges_per_s=eps)
+    # per-layer epoch work scales with local edges; the halo roofline
+    # (parallel/scaling.py) gives the efficiency multiplier for the
+    # extrapolation. The measured whole-step edge rate is the compute
+    # term: it is FASTER than any single layer's SpMM pass, which
+    # overstates t_comm relative to t_compute -> a conservative estimate
+    from gammagl_tpu.parallel.scaling import halo_scaling_estimate
     rows_full = -(-PAPERS_N // chips_for_full)
-    kw = dict(num_parts=chips_for_full,
-              edges_per_part=-(-PAPERS_E // chips_for_full),
-              halo_rows_sent=rows_full,  # worst: every owned row is halo
-              feat_dim=args.hidden, hw=hw, total_edges=PAPERS_E)
-    est_ov = halo_scaling_estimate(overlap=True, **kw)
-    est_flat = halo_scaling_estimate(overlap=False, **kw)
-    # headline uses the FLAT (no overlap credit) roofline — the
-    # conservative end of the measured band (MULTICHIP artifact:
-    # balanced-order 8-dev roofline = 100% overlapped / ~81% flat)
-    eff = est_flat["efficiency"]
+    roof = halo_scaling_estimate(
+        num_parts=chips_for_full,
+        edges_per_part=-(-PAPERS_E // chips_for_full),
+        halo_rows_sent=rows_full,  # worst: every owned row is halo
+        feat_dim=args.hidden, spmm_edges_per_s=eps, hw=hw,
+        total_edges=PAPERS_E)
+    eff = roof["efficiency"]
     full_epoch_s = PAPERS_E / (eps * chips_for_full * eff)
     payload = {
         "metric": "papers100m_gcn_epoch",
         "shard_nodes": int(n), "shard_edges": int(ei.shape[1]),
         "scale": scale, "layers": args.layers, "hidden": args.hidden,
-        "feat_dim": f, "dtype": "bfloat16",
-        "tier": "planned" if planned else "flat",
+        "feat_dim": f, "dtype": "bfloat16", "tier": "flat",
+        "device_kind": dev.device_kind,
         "sustained_epoch_ms": round(sustained * 1e3, 1),
         "edges_per_s_per_chip": int(eps),
         "est_hbm_gb": round(float(est), 2),
         "extrapolated_full_graph": {
             "chips": int(chips_for_full),
-            "scaling_efficiency_model_flat": round(float(eff), 3),
-            "scaling_efficiency_model_overlapped": round(
-                float(est_ov["efficiency"]), 3),
+            "scaling_efficiency_model": round(float(eff), 3),
             "epoch_s": round(full_epoch_s, 2),
         },
         "reference_counterpart": "none (GammaGL has no full-graph "
                                  "multi-chip training; SURVEY.md §2.10)",
     }
-    with open(args.out, "w") as fh:
-        json.dump(payload, fh, indent=1)
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(payload, fh, indent=1)
     print(json.dumps(payload))
 
 

@@ -1,5 +1,5 @@
 """Raw-format fixture tests: every dataset reader parses a fabricated
-byte-realistic raw payload offline (VERDICT round-1 item: the reference
+byte-realistic raw payload offline (the reference
 exercises each reader via download tests, tests/datasets/*; here the raw
 formats are fabricated so every `process()` path runs in CI without
 network).

@@ -141,147 +141,3 @@ def test_rgcn_simplehgn_models():
                         heads=2, drop_rate=0.0)
     params = m2.init(jax.random.PRNGKey(0), x, ei, et)
     assert m2.apply(params, x, ei, et).shape == (6, 3)
-
-
-def test_hgt_conv_plan_dict_matches_coo():
-    """Fused per-relation flash path == decomposed XLA path (dropout off)."""
-    from gammagl_tpu.data import HeteroGraph
-
-    x_dict, ei_dict, metadata = _typed_graph()
-    g = HeteroGraph()
-    for nt, x in x_dict.items():
-        g[nt].x = x
-    for et, ei in ei_dict.items():
-        g[et].edge_index = ei
-    plans = g.csr_plans(R=8, ET=8)
-    assert set(plans) == set(ei_dict)
-
-    conv = HGTConv(out_channels=8, metadata=metadata, heads=2,
-                   dropout_rate=0.0)
-    params = conv.init(jax.random.PRNGKey(0), x_dict, ei_dict)
-    ref = conv.apply(params, x_dict, ei_dict)
-    out = conv.apply(params, x_dict, ei_dict, plan_dict=plans)
-    assert set(out) == set(ref)
-    for nt in ref:
-        np.testing.assert_allclose(np.asarray(out[nt]),
-                                   np.asarray(ref[nt]),
-                                   rtol=1e-4, atol=1e-5)
-
-
-def test_han_conv_plan_dict_matches_coo():
-    from gammagl_tpu.data import HeteroGraph
-
-    x_dict, ei_dict, metadata = _typed_graph()
-    # HAN runs GAT per metapath on the SOURCE features; restrict to the
-    # same-type metapath (paper cites paper) like real metapath usage
-    ei_dict = {("paper", "cites", "paper"): ei_dict[("paper", "cites",
-                                                     "paper")]}
-    metadata = (["paper"], list(ei_dict.keys()))
-    x_dict = {"paper": x_dict["paper"]}
-    g = HeteroGraph()
-    g["paper"].x = x_dict["paper"]
-    for et, ei in ei_dict.items():
-        g[et].edge_index = ei
-    plans = g.csr_plans(R=8, ET=8)
-
-    conv = HANConv(out_channels=8, metadata=metadata, heads=2,
-                   dropout_rate=0.0)
-    params = conv.init(jax.random.PRNGKey(0), x_dict, ei_dict)
-    ref = conv.apply(params, x_dict, ei_dict)
-    out = conv.apply(params, x_dict, ei_dict, plan_dict=plans)
-    for nt in ref:
-        np.testing.assert_allclose(np.asarray(out[nt]),
-                                   np.asarray(ref[nt]),
-                                   rtol=1e-4, atol=1e-5)
-
-
-def test_hgt_conv_plan_dropout_trains():
-    from gammagl_tpu.data import HeteroGraph
-
-    x_dict, ei_dict, metadata = _typed_graph()
-    g = HeteroGraph()
-    for nt, x in x_dict.items():
-        g[nt].x = x
-    for et, ei in ei_dict.items():
-        g[et].edge_index = ei
-    plans = g.csr_plans(R=8, ET=8)
-    conv = HGTConv(out_channels=8, metadata=metadata, heads=2,
-                   dropout_rate=0.5)
-    params = conv.init(jax.random.PRNGKey(0), x_dict, ei_dict)
-
-    def loss(p):
-        out = conv.apply(p, x_dict, ei_dict, train=True, plan_dict=plans,
-                         rngs={"dropout": jax.random.PRNGKey(1)})
-        return sum((v ** 2).sum() for v in out.values())
-
-    grads = jax.grad(loss)(params)
-    for leaf in jax.tree_util.tree_leaves(grads):
-        assert np.isfinite(np.asarray(leaf)).all()
-
-
-def test_rgcn_conv_plan_matches_coo():
-    from gammagl_tpu.ops.pallas import build_csr_plan
-
-    rng = np.random.default_rng(43)
-    n, e, R = 18, 70, 3
-    src = rng.integers(0, n, e)
-    dst = rng.integers(0, n, e)
-    et = jnp.asarray(rng.integers(0, R, e))
-    ei = jnp.asarray(np.stack([src, dst]))
-    x = jnp.asarray(rng.normal(size=(n, 5)).astype(np.float32))
-    plan = build_csr_plan(src, dst, n, R=8, ET=16)
-
-    for kwargs in ({}, {"num_bases": 2}):
-        conv = RGCNConv(in_channels=5, out_channels=6, num_relations=R,
-                        **kwargs)
-        params = conv.init(jax.random.PRNGKey(0), x, ei, et)
-        ref = conv.apply(params, x, ei, et)
-        out = conv.apply(params, x, ei, et, plan=plan)
-        np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                                   rtol=1e-4, atol=1e-5)
-
-        # gradients must also agree (kernel segment reduce VJP)
-        g1 = jax.grad(lambda p: (conv.apply(p, x, ei, et,
-                                            plan=plan) ** 2).sum())(params)
-        g2 = jax.grad(lambda p: (conv.apply(p, x, ei,
-                                            et) ** 2).sum())(params)
-        for a, b in zip(jax.tree_util.tree_leaves(g1),
-                        jax.tree_util.tree_leaves(g2)):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       rtol=1e-3, atol=1e-4)
-
-
-def test_simplehgn_conv_plan_matches_coo():
-    from gammagl_tpu.ops.pallas import build_csr_plan
-
-    rng = np.random.default_rng(47)
-    n, e, T = 16, 60, 4
-    src = rng.integers(0, n, e)
-    dst = rng.integers(0, n, e)
-    et = jnp.asarray(rng.integers(0, T, e))
-    ei = jnp.asarray(np.stack([src, dst]))
-    x = jnp.asarray(rng.normal(size=(n, 5)).astype(np.float32))
-    plan = build_csr_plan(src, dst, n, R=8, ET=16)
-
-    conv = SimpleHGNConv(out_channels=6, num_etypes=T, heads=2,
-                         dropout_rate=0.0)
-    params = conv.init(jax.random.PRNGKey(0), x, ei, et)
-    ref, alpha_ref = conv.apply(params, x, ei, et)
-    out, alpha = conv.apply(params, x, ei, et, plan=plan)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=1e-4, atol=1e-5)
-    # plan-order alpha at valid lanes == COO alpha permuted by plan.perm
-    perm_ok = plan.perm[plan.valid]
-    np.testing.assert_allclose(np.asarray(alpha)[plan.valid],
-                               np.asarray(alpha_ref)[perm_ok],
-                               rtol=1e-4, atol=1e-5)
-
-    # two-layer stacking (alpha_prev round trip in plan order)
-    from gammagl_tpu.models import SimpleHGNModel
-    m = SimpleHGNModel(num_etypes=T, hidden_channels=6, num_class=3,
-                       heads=2, drop_rate=0.0)
-    mp = m.init(jax.random.PRNGKey(0), x, ei, et)
-    r1 = m.apply(mp, x, ei, et)
-    r2 = m.apply(mp, x, ei, et, plan=plan)
-    np.testing.assert_allclose(np.asarray(r2), np.asarray(r1),
-                               rtol=1e-4, atol=1e-5)

@@ -10,13 +10,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gammagl_tpu.layers.conv import (FusedGATConv, MAGCLConv, MGNNI_m_iter,
-                                     GCNConv)
+from gammagl_tpu.layers.conv import MAGCLConv, MGNNI_m_iter, GCNConv
 from gammagl_tpu.models import (
     AGNNModel, FILMModel, GMMModel, DNAModel, HCHA, LogReg, SkipGramModel,
     MGNNI_m_att, DFADModel, DFADGenerator, Generator, Discriminator,
     EigenMLP, Encoder, SpaSpeNode, ReModel, EdgePromptNodeClassifier,
-    FusedGATModel, GNN, amp_elbo_regression_loss, TADWModel)
+    GNN, amp_elbo_regression_loss, TADWModel)
 
 
 @pytest.fixture(scope="module")
@@ -86,19 +85,6 @@ def test_mgnni_att(tiny):
     out = _run(MGNNI_m_att(num_class=c, hidden_dim=8, iters=3), x, ei)
     assert out.shape == (n, c)
     assert np.isfinite(np.asarray(out)).all()
-
-
-def test_fused_gat_requires_and_uses_plan(tiny):
-    n, ei, x, _, c = tiny
-    plan = FusedGATConv.to_graph_format(ei, n, R=8, ET=16)
-    model = FusedGATModel(hidden_dim=4, num_class=c, heads=2)
-    params = model.init(jax.random.PRNGKey(0), x, ei, plan)
-    out = model.apply(params, x, ei, plan)
-    assert out.shape == (n, c)
-    assert np.isfinite(np.asarray(out)).all()
-    conv = FusedGATConv(4, heads=2)
-    with pytest.raises(ValueError):
-        conv.init(jax.random.PRNGKey(0), x, ei)
 
 
 def test_logreg_linear():

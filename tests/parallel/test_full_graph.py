@@ -107,36 +107,4 @@ def test_estimate_hbm_budget_sanity():
     gb_f32 = estimate_hbm_gb(111_059_956, 128, 256, 3, 16, 13,
                              compute_dtype=jnp.float32, remat=False)
     assert gb_bf16 < gb_f32
-    assert 0.5 < gb_bf16 < 16.0  # fits a v5e chip
-
-
-def test_partitioned_gcn_trains_on_planned_tier():
-    # same recipe over the overlapped Pallas-kernel halo partition
-    from gammagl_tpu.parallel import build_halo_partition_planned
-    ei, x, y = _sbm(seed=4)
-    n, f = x.shape
-    w = np.asarray(calc_gcn_norm(jnp.asarray(ei), n))
-    mesh = make_mesh(axis_names=("dp",))
-    part = build_halo_partition_planned(ei, n, 8, w, R=8, ET=128)
-
-    params, opt_state, step, eval_logits = make_partitioned_gcn_train(
-        mesh, part, feat_dim=f, hidden_dim=16, num_classes=2,
-        num_layers=2, compute_dtype=jnp.float32, remat=True,
-        learning_rate=5e-2)
-
-    mask = np.zeros(n, np.float32)
-    mask[np.random.default_rng(1).choice(n, n // 2, replace=False)] = 1.0
-    xs = shard_nodes(x, mesh, part)
-    ys = shard_nodes(y, mesh, part)
-    ms = shard_nodes(mask, mesh, part)
-
-    losses = []
-    for _ in range(60):
-        params, opt_state, loss = step(params, opt_state, xs, ys, ms)
-        losses.append(float(loss))
-    assert losses[-1] < 0.4 * losses[0], losses[::10]
-
-    logits = np.asarray(eval_logits(params, xs))[:n]
-    test = mask == 0
-    acc = (logits.argmax(1)[test] == y[test]).mean()
-    assert acc > 0.85, acc
+    assert 0.5 < gb_bf16 < 16.0

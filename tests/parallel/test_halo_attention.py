@@ -3,7 +3,7 @@
 Reference semantics: gammagl/layers/conv/gat_conv.py — per-head score
 LeakyReLU(a_src.h_src + a_dst.h_dst), softmax over each destination's
 incoming edges, weighted sum of source features. Runs on the 8-virtual-CPU
-mesh from conftest; the Pallas aggregation auto-interprets off-TPU.
+mesh from conftest.
 """
 
 import numpy as np
@@ -58,9 +58,9 @@ def test_partitioned_gat_matches_dense(heads):
     n, ndev, fh = 96, 4, 8
     ei, x, a_src, a_dst = _graph(n, heads=heads, fh=fh, seed=1)
     mesh = _mesh(ndev)
-    part = build_halo_partition_attn(ei, n, ndev, R=16, ET=128)
+    part = build_halo_partition_attn(ei, n, ndev)
     total = part.num_parts * part.rows_per
-    layer = make_partitioned_gat_layer(mesh, part, heads, interpret=True)
+    layer = make_partitioned_gat_layer(mesh, part, heads)
     out = jax.jit(layer)(_shard(x, mesh, total),
                          jnp.asarray(a_src), jnp.asarray(a_dst))
     ref = _dense_gat(jnp.asarray(ei), jnp.asarray(x), jnp.asarray(a_src),
@@ -73,9 +73,9 @@ def test_partitioned_gat_grads_match_dense():
     n, ndev, heads, fh = 80, 8, 2, 8
     ei, x, a_src, a_dst = _graph(n, e=600, heads=heads, fh=fh, seed=3)
     mesh = _mesh(ndev)
-    part = build_halo_partition_attn(ei, n, ndev, R=8, ET=128)
+    part = build_halo_partition_attn(ei, n, ndev)
     total = part.num_parts * part.rows_per
-    layer = make_partitioned_gat_layer(mesh, part, heads, interpret=True)
+    layer = make_partitioned_gat_layer(mesh, part, heads)
     xs = _shard(x, mesh, total)
 
     def loss(xv, asv, adv):
@@ -105,7 +105,7 @@ def test_partitioned_gat_full_graph_recipe():
     ei, x, y = _sbm(seed=17)
     n, f = x.shape
     mesh = _mesh(4)
-    part = build_halo_partition_attn(ei, n, 4, R=8, ET=128)
+    part = build_halo_partition_attn(ei, n, 4)
     params, opt_state, step, eval_logits = make_partitioned_gat_train(
         mesh, part, feat_dim=f, hidden_dim=8, num_classes=2, heads=2,
         num_layers=2, compute_dtype=jnp.float32, learning_rate=5e-2)
@@ -134,9 +134,9 @@ def test_partitioned_gat_isolated_destination():
     a_src = rng.normal(size=(heads, fh)).astype(np.float32)
     a_dst = rng.normal(size=(heads, fh)).astype(np.float32)
     mesh = _mesh(ndev)
-    part = build_halo_partition_attn(ei, n, ndev, R=8, ET=128)
+    part = build_halo_partition_attn(ei, n, ndev)
     total = part.num_parts * part.rows_per
-    layer = make_partitioned_gat_layer(mesh, part, heads, interpret=True)
+    layer = make_partitioned_gat_layer(mesh, part, heads)
     out = np.asarray(jax.jit(layer)(_shard(x, mesh, total),
                                     jnp.asarray(a_src),
                                     jnp.asarray(a_dst))).reshape(total, -1)
@@ -146,3 +146,32 @@ def test_partitioned_gat_isolated_destination():
                      jnp.asarray(a_dst), n, heads)
     np.testing.assert_allclose(out[:n // 2], np.asarray(ref)[:n // 2],
                                rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("ndev", [2, 4, 8])
+def test_partitioned_gat_device_counts(ndev):
+    """Output and gradients match the dense layer on 2, 4 and 8 devices;
+    every device's edge list is dst-sorted with pads at the end."""
+    n, heads, fh = 72, 2, 4
+    ei, x, a_src, a_dst = _graph(n, e=500, heads=heads, fh=fh, seed=ndev)
+    mesh = _mesh(ndev)
+    part = build_halo_partition_attn(ei, n, ndev)
+    assert part.src_local.shape == part.dst_local.shape
+    for d in part.dst_local:
+        assert (np.diff(d) >= 0).all() and d.max() <= part.rows_per
+    total = part.num_parts * part.rows_per
+    layer = make_partitioned_gat_layer(mesh, part, heads)
+    xs = _shard(x, mesh, total)
+    out = np.asarray(jax.jit(layer)(xs, jnp.asarray(a_src),
+                                    jnp.asarray(a_dst))).reshape(total, -1)
+    ref = _dense_gat(jnp.asarray(ei), jnp.asarray(x), jnp.asarray(a_src),
+                     jnp.asarray(a_dst), n, heads)
+    np.testing.assert_allclose(out[:n], np.asarray(ref), rtol=2e-4,
+                               atol=2e-4)
+    ga = jax.jit(jax.grad(lambda v: jnp.sum(layer(
+        xs, v, jnp.asarray(a_dst)) ** 2)))(jnp.asarray(a_src))
+    ra = jax.grad(lambda v: jnp.sum(_dense_gat(
+        jnp.asarray(ei), jnp.asarray(x), v, jnp.asarray(a_dst), n,
+        heads) ** 2))(jnp.asarray(a_src))
+    np.testing.assert_allclose(np.asarray(ga), np.asarray(ra), rtol=3e-3,
+                               atol=3e-3)

@@ -1,5 +1,5 @@
 """Two-level (slice x dp) halo SpMM vs single-device reference on a
-2x4 virtual mesh, plus gradient parity, DCN-dedup accounting, and the
+2x4 virtual mesh, plus gradient parity, inter-host dedup accounting, and the
 full-graph GCN recipe running on the hierarchical partition."""
 
 import numpy as np
@@ -58,7 +58,7 @@ def test_hier_halo_spmm_grad():
 
 
 def test_hier_matches_flat_partition_traffic():
-    """Slice-dedup never moves MORE rows over DCN than the flat scheme,
+    """Host dedup never moves MORE rows across hosts than the flat scheme,
     and on a graph with shared remote neighbors it moves strictly fewer."""
     # hub graph: node 0 (slice 0) feeds every node of slice 1
     n = 64
@@ -66,9 +66,9 @@ def test_hier_matches_flat_partition_traffic():
     ei = np.stack([np.zeros_like(dst), dst])
     part = build_hier_halo_partition(ei, n, 2, 4)
     rep = traffic_report(part, feat_dim=128)
-    assert rep["dcn_bytes"] <= rep["dcn_bytes_flat"]
-    # row 0 crosses DCN once (deduped) instead of once per consumer device
-    assert rep["dcn_dedup_factor"] == 4.0
+    assert rep["inter_host_bytes"] <= rep["inter_host_bytes_flat"]
+    # row 0 crosses hosts once (deduped) instead of once per consumer device
+    assert rep["dedup_factor"] == 4.0
 
 
 def test_hier_partitioned_gcn_trains():

@@ -38,15 +38,14 @@ def test_balance_permutation_tiny_graph_identity():
 def test_pad_unpad_nodes_roundtrip_balanced():
     """pad_nodes applies the partition's balanced relabeling;
     unpad_nodes inverts it exactly."""
-    from gammagl_tpu.parallel import (build_halo_partition_planned,
+    from gammagl_tpu.parallel import (build_halo_partition,
                                       pad_nodes, unpad_nodes)
     rng = np.random.default_rng(3)
     n, e, p = 300, 3000, 4
     dst = (n * (rng.random(e) ** 2.0)).astype(np.int64)
     src = rng.integers(0, n, e)
-    part = build_halo_partition_planned(np.stack([src, dst]), n, p,
-                                        np.ones(e, np.float32),
-                                        R=8, ET=128)
+    part = build_halo_partition(np.stack([src, dst]), n, p,
+                                np.ones(e, np.float32))
     assert part.node_perm is not None
     x = rng.normal(size=(n, 5)).astype(np.float32)
     padded = pad_nodes(x, part)

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import optax
 import pytest
 
-from gammagl_tpu.parallel import (build_halo_partition_planned, make_mesh,
+from gammagl_tpu.parallel import (build_halo_partition, make_mesh,
                                   make_partitioned_gcn_train,
                                   make_partitioned_gcn_train_staged,
                                   shard_nodes)
@@ -24,7 +24,7 @@ def _setup(seed=0, n=400, e=2600, f=32, c=5):
     w = calc_gcn_norm_np(ei, n)
     mesh = make_mesh(axis_names=("dp",))
     num_parts = int(np.prod(mesh.devices.shape))
-    part = build_halo_partition_planned(ei, n, num_parts, w, R=8, ET=128)
+    part = build_halo_partition(ei, n, num_parts, w)
     x = rng.normal(size=(n, f)).astype(np.float32)
     y = rng.integers(0, c, n)
     train = np.ones(n, bool)

@@ -10,7 +10,7 @@ import pytest
 PACKAGES = [
     "gammagl_tpu",
     "gammagl_tpu.ops",
-    "gammagl_tpu.ops.pallas",
+    "gammagl_tpu.nn",
     "gammagl_tpu.data",
     "gammagl_tpu.datasets",
     "gammagl_tpu.layers.conv",

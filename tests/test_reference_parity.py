@@ -3,7 +3,7 @@
 Name lists are frozen copies of the reference `__all__`s
 (gammagl/{models,layers/conv,datasets,utils,transforms,loader}/__init__.py
 at v0.6.0) so the test stays hermetic. A reference user switching to this
-framework must find every name (possibly as an alias of the TPU-native
+framework must find every name (possibly as an alias of this framework's
 primary class).
 """
 

@@ -121,3 +121,24 @@ def test_micro_batcher_propagates_errors():
         except RuntimeError:
             raised = True
     assert raised
+
+
+def test_export_roundtrip_nested_outputs(tmp_path):
+    """An artifact whose outputs are a nested dict/list/tuple keeps that
+    structure through save and load."""
+    model, params, x, ei = _setup(seed=2)
+
+    def two_heads(p, x, ei):
+        out = model.apply(p, x, ei)
+        return {"logits": out, "rest": [out.sum(0), (out.max(),)]}
+
+    exp = export_forward(two_heads, params, (x, ei))
+    save_exported(exp, tmp_path / "two.stablehlo")
+    back = load_exported(tmp_path / "two.stablehlo")
+    got, want = back.call(x, ei), two_heads(params, x, ei)
+    assert jax.tree_util.tree_structure(got) == \
+        jax.tree_util.tree_structure(want)
+    for g, w in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(want)):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w),
+                                   rtol=1e-5, atol=1e-5)

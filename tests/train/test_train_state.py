@@ -19,7 +19,7 @@ def test_checkpoint_roundtrip(tmp_path):
     state = state.apply_gradients(grads)
     assert state.step == 2
 
-    path = str(tmp_path / "ckpt.msgpack")
+    path = str(tmp_path / "ckpt.npz")
     save_checkpoint(path, state)
     fresh = TrainState.create(params=params, tx=tx)
     restored = load_checkpoint(path, fresh)

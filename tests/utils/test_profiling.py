@@ -2,9 +2,9 @@
 
 The reference avoids C++/CUDA races with atomics (spmm_sum_cpu.cpp:34-37,
 segment_sum_cuda.cu:29) -- atomicAdd float reductions are NOT bitwise
-reproducible across runs. The XLA/Pallas kernels here have a fixed
-reduction order, so the TPU build upgrades "race-free" to "bitwise
-deterministic"; these tests pin that guarantee.
+reproducible across runs. XLA's CPU scatter-add has a fixed reduction
+order; these tests pin that on the CPU. XLA's GPU scatter-add uses atomics
+unless `--xla_gpu_deterministic_ops=true` is in XLA_FLAGS.
 """
 
 import os
@@ -13,12 +13,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gammagl_tpu.utils import chain_time, trace, device_timer
+from gammagl_tpu.utils import median_time, trace, device_timer
 
 
-def test_chain_time_positive():
-    t = chain_time(lambda h: h * 1.0001, jnp.ones((64, 64)), K=4, reps=2)
-    assert t > 0
+def test_median_time_positive():
+    t, samples = median_time(jax.jit(lambda h: h * 1.0001),
+                             jnp.ones((64, 64)), iters=3, warmup=1)
+    assert t > 0 and len(samples) == 3 and min(samples) <= t
 
 
 def test_trace_writes_profile(tmp_path):
@@ -33,23 +34,6 @@ def test_device_timer_emits(capsys):
     with device_timer("probe"):
         jnp.ones((8,)).sum().block_until_ready()
     assert "probe:" in capsys.readouterr().out
-
-
-def test_pallas_spmm_bitwise_deterministic():
-    from gammagl_tpu.ops.pallas import build_csr_plan, spmm_csr
-
-    rng = np.random.default_rng(0)
-    n, e, f = 300, 3000, 32
-    src = rng.integers(0, n, e)
-    dst = rng.integers(0, n, e)
-    plan = build_csr_plan(src, dst, n, R=64, ET=128)
-    x = jnp.asarray(rng.normal(size=(n, f)).astype(np.float32))
-    w = jnp.asarray(rng.normal(size=e).astype(np.float32))
-
-    fn = jax.jit(lambda x: spmm_csr(x, w, plan))
-    a = np.asarray(fn(x))
-    b = np.asarray(fn(x + 0.0))  # distinct buffer, same values
-    assert (a == b).all(), "pallas spmm not bitwise deterministic"
 
 
 def test_segment_sum_bitwise_deterministic():
